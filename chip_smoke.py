@@ -10,11 +10,18 @@ Phases, each of which fails the run on error:
   1. environment: torch/CUDA versions, the card's name and power limit,
      the kernel build;
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (real index data) and at a ragged small shape;
+     main path's shapes (real index data) and at ragged small shapes:
+     prune's keys within the stated tolerance and flip rule, its group
+     minima and alive counts exactly those of its own keys; verify's
+     d2m and n_hits bitwise; then each kernel's time beside its plain
+     version's, its bound and the one PyTorch call that computes the
+     same (torch.cdist for prune's distances), and, for verify, the time
+     of the candidate gather it made unnecessary;
   3. the main path at the bench workload (N = 2^20 k-mers, L = 25,
      4096 centers, R = 35): build_index, the exact oracle, ivf.search up
      the k_blocks ladder 128 -> 256 -> 512 until weighted recall >= 0.99,
-     then 3 timed searches; kernel launch counts are read around it;
+     then 3 timed searches; kernel launch counts are read around it,
+     and torch.profiler gives one search call's device time by kernel;
   4. the exactness contract (retry_overflow=True equals the oracle) on a
      2^16-point prefix;
   5. the CLI: motif-search --engine ivf equals motif-search-exact.
@@ -39,8 +46,9 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # published peaks of one H100 SXM (NVIDIA data sheet): float32 outside
-# the tensor cores, and HBM3 bandwidth
+# the tensor cores, dense TF32 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 N_LOG2, L, C, RADIUS = 20, 25, 4096, 35.0
@@ -93,61 +101,36 @@ def _time_ms(fn, dev, reps=10):
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def _bound_ms(flops, nbytes):
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+def _bound_ms(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
 
 def check_prune(ck, q, cent, rad, r):
-    """Kernel vs plain: each finite key within rtol 1e-4 / atol 1e-3 in d,
-    or within 1e-3 + 1e-5 * (|q|^2 + |cent|^2) in d^2; the finite/inf
-    masks agree except within 1e-3 of r + radius.
-
-    The d^2 form is for keys near 0: both versions compute
-    d^2 = |q|^2 + |c|^2 - 2 q.c in float32 with different summation
-    orders, so they differ by a few ulps of the norms (~2e-3 at norms
-    ~4e3), and the sqrt turns that into ~0.04 in d when d is ~0.
-    """
-    import torch
-    from hsearch_tpu_torch.ops import distance
+    """Kernel vs plain on the same inputs, under
+    ops/kernel_checks.prune_agreement's tolerance and flip rule."""
+    from hsearch_tpu_torch.ops import kernel_checks
     got = ck.sq_distance_prune(q, cent, rad, r)
     want = ck.sq_distance_prune_plain(q, cent, rad, r)
-    fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
-    both = fin_g & fin_w
-    err = (got - want).abs()[both]
-    max_err = float(err.max()) if err.numel() else 0.0
-    scale = (torch.sum(q * q, dim=1)[:, None]
-             + torch.sum(cent * cent, dim=1)[None, :])[both]
-    err2 = (got[both] ** 2 - want[both] ** 2).abs()
-    tol_ok = bool(((err <= 1e-3 + 1e-4 * want[both].abs())
-                   | (err2 <= 1e-3 + 1e-5 * scale)).all())
-    flip = fin_g != fin_w
-    n_flip = int(flip.sum())
-    if n_flip:
-        d = torch.sqrt(distance.sq_distance_matrix(q, cent))
-        thr = float(np.float32(r)) + rad[None, :].expand_as(d)
-        flips_ok = bool(((d - thr)[flip].abs() <= 1e-3).all())
-    else:
-        flips_ok = True
-    return {"max_abs_err": max_err,
-            "max_d2_err_over_norms": float((err2 / scale).max())
-            if err2.numel() else 0.0,
-            "n_finite": int(both.sum()), "mask_flips": n_flip,
-            "ok": tol_ok and flips_ok and int(both.sum()) > 0}
+    _sync(q.device)
+    return kernel_checks.prune_agreement(q, cent, rad, r, got, want)
 
 
-def check_verify(ck, ptab, cand):
-    """Kernel vs plain: bitwise equal, or within rtol 2e-6 / atol 1e-4."""
-    got = ck.ptable_verify(ptab, cand)
-    want = ck.ptable_verify_plain(ptab, cand)
-    bitwise = bool((got == want).all())
-    max_err = float((got - want).abs().max()) if got.numel() else 0.0
-    close = bool(((got - want).abs()
-                  <= 1e-4 + 2e-6 * want.abs()).all())
-    return {"max_abs_err": max_err, "bitwise": bitwise,
-            "ok": bitwise or close}
+def check_verify(ck, *args):
+    """Kernel vs plain on the same inputs: d2m and n_hits bitwise equal."""
+    from hsearch_tpu_torch.ops import kernel_checks
+    return kernel_checks.verify_agreement(ck.ptable_verify(*args),
+                                          ck.ptable_verify_plain(*args))
+
+
+def verify_small_inputs(rng, dev, c, kb, bs, l):
+    """ops/kernel_checks.verify_inputs at a ragged shape, on ``dev``."""
+    import torch
+    from hsearch_tpu_torch.ops import kernel_checks
+    *arrays, r2, n = kernel_checks.verify_inputs(rng, c, kb, bs, l)
+    return (*(torch.as_tensor(x, device=dev) for x in arrays), r2, n)
 
 
 def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
@@ -181,9 +164,10 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     q_emb = torch.as_tensor(embedding.embed_kmers(centers[:c_blk]),
                             device=dev)
     r = float(np.float32(RADIUS))
-    prune_bench = check_prune(ck, q_emb, idx2.block_centroid,
-                              idx2.block_radius, r)
-    # ragged small shape; r puts about half the keys on each side
+    cent2, rad2 = idx2.block_centroid, idx2.block_radius
+    prune_bench = check_prune(ck, q_emb, cent2, rad2, r)
+    # ragged small shape (C not a multiple of the 128-row tile, B not a
+    # multiple of 64); r puts about half the keys on each side
     qs = torch.randn(200, 80, generator=gen).mul(10).to(dev)
     cs = torch.randn(300, 80, generator=gen).mul(10).to(dev)
     rs = torch.rand(300, generator=gen).mul(5).to(dev)
@@ -191,53 +175,75 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                    .median()) - 2.5
     prune_small = check_prune(ck, qs, cs, rs, rsmall)
     print(f"phase2 prune bench {tuple(q_emb.shape)}x"
-          f"{tuple(idx2.block_centroid.shape)}: {prune_bench}", flush=True)
+          f"{tuple(cent2.shape)}: {prune_bench}", flush=True)
     print(f"phase2 prune small (200,80)x(300,80): {prune_small}", flush=True)
 
-    # verify at the main path's first rung: the real candidates of kb=128
+    # verify at the main path's first rung: the real select of kb=128
     kb0 = min(KB_LADDER[0], idx2.num_blocks)
-    key = ck.sq_distance_prune(q_emb, idx2.block_centroid,
-                               idx2.block_radius, r)
-    if key.shape[1] >= 4 * ivf._SELECT_GROUP:
-        _, blk = ivf._cascade_top_blocks(key, kb0, ivf._SELECT_GROUP)
+    key, gmin, _ = ck.sq_distance_prune(q_emb, cent2, rad2, r)
+    if idx2.num_blocks >= 4 * ivf._SELECT_GROUP:
+        neg, blk = ivf._cascade_top_blocks(key, gmin, kb0)
     else:
-        _, blk = torch.topk(-key, kb0, dim=1)
-    cand = idx2.db_sorted[blk].reshape(c_blk, -1, L)
+        neg, blk = torch.topk(-key[:, :idx2.num_blocks], kb0, dim=1)
+    del key, gmin
     ptab = _center_ptables(torch.as_tensor(centers[:c_blk], device=dev), L)
-    verify_bench = check_verify(ck, ptab, cand)
-    ptab_s = torch.rand(6, L, 20, generator=gen).to(dev)
-    cand_s = torch.randint(0, 20, (6, 1000, L), generator=gen) \
-        .to(torch.int8).to(dev)
-    verify_small = check_verify(ck, ptab_s, cand_s)
-    print(f"phase2 verify bench {tuple(cand.shape)}: {verify_bench}",
+    r2 = float(np.float32(r) * np.float32(r))
+    vargs = (ptab, idx2.db_sorted, idx2.order, blk, neg, r2, idx2.n_points)
+    verify_bench = check_verify(ck, *vargs)
+    # ragged: kb*bs not a multiple of the 512-candidate tile, rows of 200
+    # bytes (byte staging) and 800 bytes (16-byte staging)
+    verify_small = check_verify(ck, *verify_small_inputs(rng, dev, 6, 37, 8,
+                                                          L))
+    verify_small16 = check_verify(ck, *verify_small_inputs(rng, dev, 5, 21,
+                                                            32, L))
+    print(f"phase2 verify bench C={c_blk} kb={kb0} bs={idx2.block_size}: "
+          f"{verify_bench}", flush=True)
+    print(f"phase2 verify small (6, kb 37, bs 8): {verify_small}",
           flush=True)
-    print(f"phase2 verify small (6,1000,{L}): {verify_small}", flush=True)
+    print(f"phase2 verify small (5, kb 21, bs 32): {verify_small16}",
+          flush=True)
     for name, res in (("prune bench", prune_bench),
                       ("prune small", prune_small),
                       ("verify bench", verify_bench),
-                      ("verify small", verify_small)):
+                      ("verify small", verify_small),
+                      ("verify small 16-byte", verify_small16)):
         if not res["ok"]:
             raise AssertionError(f"{name} disagrees with its plain version:"
                                  f" {res}")
 
     # times at the main path's shapes
     cq, bq, dq = q_emb.shape[0], idx2.num_blocks, q_emb.shape[1]
-    rad2 = idx2.block_radius
-    cent2 = idx2.block_centroid
-    prune_ms = _time_ms(lambda: ck.sq_distance_prune(q_emb, cent2, rad2, r),
-                        dev)
+    bp = -(-bq // ck.PRUNE_GROUP) * ck.PRUNE_GROUP
+    prune_ms = _time_ms(
+        lambda: ck.sq_distance_prune(q_emb, cent2, rad2, r), dev)
     prune_plain_ms = _time_ms(
         lambda: ck.sq_distance_prune_plain(q_emb, cent2, rad2, r), dev)
     cdist_ms = _time_ms(lambda: torch.cdist(q_emb, cent2), dev)
-    prune_bound, prune_by = _bound_ms(
-        2.0 * cq * bq * dq, 4.0 * (cq * dq + bq * dq + bq + cq * bq))
-    cv, mv, lv = cand.shape
-    verify_ms = _time_ms(lambda: ck.ptable_verify(ptab, cand), dev)
-    verify_plain_ms = _time_ms(lambda: ck.ptable_verify_plain(ptab, cand),
-                               dev)
+    # inputs q, centroids, radii; outputs key, gmin, n_alive
+    prune_bytes = 4.0 * (cq * dq + bq * dq + bq + cq * bp
+                         + cq * bp // ck.PRUNE_GROUP + cq)
+    prune_bound, prune_by = _bound_ms(3 * 2.0 * cq * bq * dq, prune_bytes,
+                                      PEAK_TF32_FLOPS)
+    # the previous kernel's reckoning: one float32 product on the SIMT
+    # units, (C, B) out
+    prune_simt, _ = _bound_ms(2.0 * cq * bq * dq,
+                              4.0 * (cq * dq + bq * dq + bq + cq * bq))
+    kbv, bsv = blk.shape[1], idx2.block_size
+    verify_ms = _time_ms(lambda: ck.ptable_verify(*vargs), dev)
+    verify_plain_ms = _time_ms(lambda: ck.ptable_verify_plain(*vargs), dev)
+    alive = torch.isfinite(neg)
+    safe = torch.where(alive, blk, torch.zeros_like(blk))
+    # the (C, kb*bs, L) candidate and id gathers the previous path ran
+    gather_ms = _time_ms(lambda: (idx2.db_sorted[safe].reshape(cq, -1, L),
+                                  idx2.order[safe]), dev)
+    # the work the fused kernel needs: each distinct selected block's rows
+    # and ids once, the tables, the select result, d2m and n_hits
+    n_distinct = int(torch.unique(blk[alive]).numel())
+    verify_bytes = (n_distinct * bsv * (L + 4) + 4.0 * cq * L * 20
+                    + 12.0 * cq * kbv + 4.0 * cq * kbv * bsv + 4.0 * cq)
     verify_bound, verify_by = _bound_ms(
-        float(cv * mv * lv), cv * mv * lv + 4.0 * cv * lv * 20 + 4.0 * cv * mv)
-    del idx2, key, cand
+        float(int(alive.sum())) * bsv * L, verify_bytes)
+    del idx2, ptab, vargs, blk, neg, safe, alive
 
     # ---- phase 3: the main path ----------------------------------------
     ck.reset_launches()
@@ -351,6 +357,9 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                             prune_small["max_abs_err"]),
          "ms": prune_ms, "plain_ms": prune_plain_ms,
          "bound_ms": prune_bound, "bound_by": prune_by,
+         "bound_basis": "3xTF32 on the tensor cores, 3*2*C*B*D at 495 "
+                        "TFLOP/s",
+         "bound_f32_simt_ms": prune_simt,
          "library_ms": cdist_ms,
          "library_call": "torch.cdist (the distance part alone)",
          "shape": [cq, bq, dq]},
@@ -359,11 +368,16 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
          "replaces": "hsearch_tpu/ops/pallas_kernels.py:145",
          "launches": launches["ptable_verify"],
          "max_abs_err": max(verify_bench["max_abs_err"],
-                            verify_small["max_abs_err"]),
-         "bitwise": verify_bench["bitwise"] and verify_small["bitwise"],
+                            verify_small["max_abs_err"],
+                            verify_small16["max_abs_err"]),
+         "bitwise": (verify_bench["bitwise"] and verify_small["bitwise"]
+                     and verify_small16["bitwise"]),
          "ms": verify_ms, "plain_ms": verify_plain_ms,
          "bound_ms": verify_bound, "bound_by": verify_by,
-         "library_ms": None, "shape": [cv, mv, lv]},
+         "distinct_blocks": n_distinct,
+         "replaced_gather_ms": gather_ms,
+         "library_ms": None,
+         "shape": [cq, kbv, bsv, L]},
     ]
     return kernels, main_path
 

@@ -1,75 +1,163 @@
-// ptable_verify: exact squared distances of gathered candidates by P-table
-// lookup.
+// ptable_verify: exact squared distances of the selected blocks' k-mers by
+// P-table lookup, read straight from the block-sorted database, with the
+// radius test and the per-center hit count fused in.
 //
 // Replaces: hsearch_tpu/ops/pallas_kernels.py:ptable_verify
-//           (kernel body _ptable_verify_kernel).
+//           (kernel body _ptable_verify_kernel), and the candidate gather
+//           and hit test around it in hsearch_tpu/search/ivf.py
+//           (_search_block).
 //
-//   d2[c, m] = sum_l ptab[c, l, cand[c, m, l]]      (l = 0 .. L-1, in order)
+//   for candidate m = j*bs + i of center c (block j of kb, row i of bs):
+//     blk    = blk_ids[c, j], alive iff neg[c, j] is finite
+//     d2     = sum_l ptab[c, l, db_sorted[blk, i*L + l]]   (l = 0..L-1)
+//     hit    = alive && order[blk, i] < n && d2 <= r2
+//     d2m[c, m]  = hit ? d2 : +inf
+//   n_hits[c] = #hits of center c
 //
 // What bounds it on Hopper: bytes.  At the search shapes (C = 1024,
-// M = kb*bs = 4096, L = 25) it reads 105 MB of int8 candidates and writes
-// 16.8 MB of float32 for 105 M table lookups, far below the card's
-// operation rate.
+// kb = 128, bs = 32, L = 25) it writes 16.8 MB of d2m and reads the
+// selected blocks' rows, 800 + 128 bytes each; a block that many centers
+// select is read from the 50 MB L2, which holds the whole 43 MB database.
+// The 105 M table lookups are far below the card's operation rate.
 //
-// Design: grid (center, candidate tile).  Each block copies its center's
-// P-table (L*20 floats, 2 KB at L = 25) into shared memory and stages its
-// tile of candidates, which is one contiguous run of TM*L bytes, into shared
-// memory with coalesced byte loads, so every candidate byte leaves device
-// memory once.  Each thread then sums its candidate's L table entries in
-// order l = 0..L-1 in float32 -- the summation order of the plain version
-// (ops/distance.ptable_distances), so the result is bitwise equal to it.
-// There is no multiply, so no FMA contraction can change the rounding.
-//
-// Later work: read candidates straight from the block-sorted database by
-// block id instead of a separately gathered (C, M, L) array, and fold the
-// d2 <= r^2 test and the per-center hit count into the same pass.
+// Design: grid (center, tile of blocks).  A block copies its center's
+// P-table (L*20 floats, 2 KB at L = 25) into shared memory, and stages the
+// rows of its alive blocks with 16-byte cp.async copies (byte loads when a
+// row is not a multiple of 16 bytes); dead blocks are never read.  Each
+// thread sums a candidate's L table entries in order l = 0..L-1 in
+// float32 -- the summation order of ops/distance.ptable_distances, so d2
+// is bitwise equal to it (there is no multiply, so no FMA contraction can
+// change the rounding).  The hit count is a warp ballot and popcount with
+// one integer atomic per warp, so n_hits is exact.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TM = 256;   // candidates per block, one per thread
+constexpr int THREADS = 256;
+constexpr int TILE_CAND = 512;   // candidates a block aims to cover
 constexpr int NAA = 20;
 
-__global__ void __launch_bounds__(TM)
-ptable_verify_kernel(const float* __restrict__ ptab,
-                     const int8_t* __restrict__ cand, float* __restrict__ out,
-                     int M, int L) {
-  extern __shared__ unsigned char smem[];
-  float* tab = reinterpret_cast<float*>(smem);                 // L * 20
-  int8_t* cs = reinterpret_cast<int8_t*>(smem + sizeof(float) * L * NAA);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+verify_kernel(const float* __restrict__ ptab,
+              const int8_t* __restrict__ db, const int* __restrict__ order,
+              const int64_t* __restrict__ blk_ids,
+              const float* __restrict__ neg, float r2, int n,
+              float* __restrict__ d2m, int* __restrict__ n_hits, int kb,
+              int bs, int L, int tile_blocks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // [P-table, L*20 floats | block ids, padded to 16 bytes | rows]
+  float* tab = reinterpret_cast<float*>(smem);
+  int* s_blk = reinterpret_cast<int*>(smem + 4 * NAA * L);
+  int8_t* rows = reinterpret_cast<int8_t*>(
+      smem + 4 * NAA * L + (4 * tile_blocks + 15) / 16 * 16);
 
   const int c = blockIdx.x;
-  const int m0 = blockIdx.y * TM;
-  const int t = threadIdx.x;
-  const int n_here = min(TM, M - m0);
+  const int j0 = blockIdx.y * tile_blocks;
+  const int nb = min(tile_blocks, kb - j0);
+  const int tid = threadIdx.x;
+  const int row_bytes = bs * L;
 
+  if (tid < nb) {
+    const size_t k = (size_t)c * kb + j0 + tid;
+    s_blk[tid] = isfinite(neg[k]) ? (int)blk_ids[k] : -1;
+  }
   const float* tsrc = ptab + (size_t)c * L * NAA;
-  for (int i = t; i < L * NAA; i += TM) tab[i] = tsrc[i];
-  const int8_t* csrc = cand + ((size_t)c * M + m0) * L;
-  const int nbytes = n_here * L;
-  for (int i = t; i < nbytes; i += TM) cs[i] = csrc[i];
+  for (int i = tid; i < L * NAA; i += THREADS) tab[i] = tsrc[i];
   __syncthreads();
 
-  if (t < n_here) {
-    const int8_t* mine = cs + t * L;
-    float acc = 0.0f;
-    for (int l = 0; l < L; ++l) acc += tab[l * NAA + mine[l]];
-    out[(size_t)c * M + m0 + t] = acc;
+  if (VEC) {
+    const int cpr = row_bytes / 16;
+    for (int i = tid; i < nb * cpr; i += THREADS) {
+      const int j = i / cpr;
+      const int blk = s_blk[j];
+      const int off = (i - j * cpr) * 16;
+      if (blk >= 0)
+        cp_async16(rows + j * row_bytes + off,
+                   db + (size_t)blk * row_bytes + off);
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+  } else {
+    for (int i = tid; i < nb * row_bytes; i += THREADS) {
+      const int j = i / row_bytes;
+      const int blk = s_blk[j];
+      if (blk >= 0)
+        rows[i] = db[(size_t)blk * row_bytes + (i - j * row_bytes)];
+    }
   }
+  __syncthreads();
+
+  const size_t out0 = ((size_t)c * kb + j0) * bs;
+  for (int base = 0; base < nb * bs; base += THREADS) {
+    const int m = base + tid;
+    bool hit = false;
+    if (m < nb * bs) {
+      const int j = m / bs;
+      const int i = m - j * bs;
+      const int blk = s_blk[j];
+      float out = INFINITY;
+      if (blk >= 0) {
+        const int8_t* mine = rows + j * row_bytes + i * L;
+        float acc = 0.0f;
+        for (int l = 0; l < L; ++l) acc += tab[l * NAA + mine[l]];
+        hit = order[(size_t)blk * bs + i] < n && acc <= r2;
+        if (hit) out = acc;
+      }
+      d2m[out0 + m] = out;
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, hit);
+    if ((tid & 31) == 0 && mask) atomicAdd(n_hits + c, __popc(mask));
+  }
+}
+
+// Blocks per tile, and the dynamic shared memory a block needs.
+int smem_bytes(int bs, int L, int* tile_blocks) {
+  const int tb = bs >= TILE_CAND ? 1 : TILE_CAND / bs;
+  *tile_blocks = tb;
+  return 4 * NAA * L + (4 * tb + 15) / 16 * 16 + tb * bs * L;
 }
 
 }  // namespace
 
-extern "C" int hs_ptable_verify(const float* ptab, const int8_t* cand,
-                                float* out, int C, int M, int L,
-                                void* stream) {
-  if (C > 0 && M > 0) {
-    dim3 grid(C, (M + TM - 1) / TM);
-    const size_t smem = sizeof(float) * L * NAA + TM * L;
-    ptable_verify_kernel<<<grid, TM, smem, (cudaStream_t)stream>>>(
-        ptab, cand, out, M, L);
+// d2m (C, kb*bs) and n_hits (C,) are written on `stream`.  Returns the
+// CUDA error of the launch, 0 on success.
+extern "C" int hs_ptable_verify(const float* ptab, const int8_t* db,
+                                const int* order, const int64_t* blk_ids,
+                                const float* neg, float r2, int n,
+                                float* d2m, int* n_hits, int C, int kb,
+                                int bs, int L, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(n_hits, 0, sizeof(int) * C, s);
+  if (err != cudaSuccess) return (int)err;
+  if (C > 0 && kb > 0 && bs > 0) {
+    int tb;
+    const int smem = smem_bytes(bs, L, &tb);
+    const bool vec = (bs * L) % 16 == 0 && (uintptr_t)db % 16 == 0;
+    const dim3 grid(C, (kb + tb - 1) / tb);
+    if (vec) {
+      err = cudaFuncSetAttribute(verify_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return (int)err;
+      verify_kernel<true><<<grid, THREADS, smem, s>>>(
+          ptab, db, order, blk_ids, neg, r2, n, d2m, n_hits, kb, bs, L, tb);
+    } else {
+      err = cudaFuncSetAttribute(verify_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return (int)err;
+      verify_kernel<false><<<grid, THREADS, smem, s>>>(
+          ptab, db, order, blk_ids, neg, r2, n, d2m, n_hits, kb, bs, L, tb);
+    }
   }
   return (int)cudaGetLastError();
 }

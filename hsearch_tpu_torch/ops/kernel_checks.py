@@ -1,0 +1,95 @@
+"""How closely each CUDA kernel must agree with its plain version.
+
+One place for the tolerance rules (and the verify kernel's test inputs)
+that chip_smoke.py and tests/test_torch_kernels.py both hold the kernels
+of ops/cuda_kernels.py to.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import distance
+
+
+def prune_agreement(q: torch.Tensor, cent: torch.Tensor,
+                    rad: torch.Tensor, r: float, got, want) -> dict:
+    """Verdict on ``got`` = sq_distance_prune's (key, gmin, n_alive) against
+    ``want`` = sq_distance_prune_plain's, on the same inputs.
+
+    key: each finite key within rtol 1e-4 / atol 1e-3 in d, or within
+    1e-3 + 1e-5 * (|q|^2 + |cent|^2) in d^2; the finite/inf masks agree
+    except within 1e-3 of r + radius (flips); the padding columns are inf.
+    gmin and n_alive: exactly the group minima and finite counts of the
+    kernel's own keys; n_alive differs from the plain version's by at
+    most the row's flips.
+
+    The d^2 form is for keys near 0: both versions compute
+    d^2 = |q|^2 + |c|^2 - 2 q.c in float32 with different summation
+    orders, so they differ by a few ulps of the norms (~2e-3 at norms
+    ~4e3), and the sqrt turns that into ~0.04 in d when d is ~0.
+    """
+    key, gmin, n_alive = got
+    wkey, _, wn = want
+    b = cent.shape[0]
+    group = key.shape[1] // gmin.shape[1]
+    self_ok = (bool(torch.equal(gmin, torch.amin(
+                   key.view(key.shape[0], -1, group), dim=2)))
+               and bool(torch.equal(n_alive, torch.isfinite(key).sum(1)
+                                    .to(torch.int32)))
+               and bool((key[:, b:] == float("inf")).all()))
+    key, wkey = key[:, :b], wkey[:, :b]
+    fin, wfin = torch.isfinite(key), torch.isfinite(wkey)
+    both = fin & wfin
+    err = (key - wkey).abs()[both]
+    scale = (torch.sum(q * q, dim=1)[:, None]
+             + torch.sum(cent * cent, dim=1)[None, :])[both]
+    err2 = (key[both] ** 2 - wkey[both] ** 2).abs()
+    tol_ok = bool(((err <= 1e-3 + 1e-4 * wkey[both].abs())
+                   | (err2 <= 1e-3 + 1e-5 * scale)).all())
+    flip = fin != wfin
+    n_flip = int(flip.sum())
+    flips_ok = True
+    if n_flip:
+        d = torch.sqrt(distance.sq_distance_matrix(q, cent))
+        thr = float(np.float32(r)) + rad[None, :].expand_as(d)
+        flips_ok = bool(((d - thr)[flip].abs() <= 1e-3).all())
+    alive_ok = bool(((n_alive - wn).abs() <= flip.sum(1)).all())
+    return {"max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "max_d2_err_over_norms": float((err2 / scale).max())
+            if err2.numel() else 0.0,
+            "n_finite": int(both.sum()), "mask_flips": n_flip,
+            "n_alive_diff": int((n_alive - wn).abs().sum()),
+            "gmin_n_alive_self_consistent": self_ok,
+            "ok": (tol_ok and flips_ok and self_ok and alive_ok
+                   and int(both.sum()) > 0)}
+
+
+def verify_agreement(got, want) -> dict:
+    """Verdict on ptable_verify's (d2m, n_hits) against
+    ptable_verify_plain's: both bitwise equal, and some hits."""
+    bitwise = bool(torch.equal(got[0], want[0])
+                   and torch.equal(got[1], want[1]))
+    fin = torch.isfinite(want[0])
+    max_err = float((got[0] - want[0])[fin].abs().max()) \
+        if bool(fin.any()) else 0.0
+    n_hits = int(want[1].sum())
+    return {"max_abs_err": max_err, "bitwise": bitwise, "n_hits": n_hits,
+            "ok": bitwise and n_hits > 0}
+
+
+def verify_inputs(rng: np.random.Generator, c: int, kb: int, bs: int,
+                  l: int, nblk: int = 50, n: int = 1000):
+    """Random verify arguments (ptab, db_sorted, order, blk_ids, neg, r2, n)
+    as numpy arrays: index arrays of ``nblk`` blocks with sentinel rows
+    (order == n) and a select result with dead blocks (neg = -inf).
+    r2 = 0.45 L sits below the mean d2 of L uniform table entries."""
+    ptab = rng.random((c, l, 20)).astype(np.float32)
+    db_sorted = rng.integers(0, 20, (nblk, bs * l)).astype(np.int8)
+    order = rng.integers(0, n, (nblk, bs)).astype(np.int32)
+    order[rng.random((nblk, bs)) < 0.2] = n
+    blk_ids = rng.integers(0, nblk, (c, kb)).astype(np.int64)
+    neg = -rng.random((c, kb)).astype(np.float32)
+    neg[rng.random((c, kb)) < 0.25] = -np.inf
+    return ptab, db_sorted, order, blk_ids, neg, 0.45 * l, n

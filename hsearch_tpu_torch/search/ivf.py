@@ -8,9 +8,11 @@ hsearch_tpu/search/ivf.py).
   query:  per center block, the ``sq_distance_prune`` kernel computes the
           distance to every block centroid and keeps a block only if
           d(q, centroid) <= R + block_radius (triangle inequality); the
-          min-cascade picks the k_blocks nearest survivors, their k-mers are
-          gathered and verified by the ``ptable_verify`` kernel, and the
-          hits are compacted into one packed buffer (ops/compact).
+          min-cascade picks the k_blocks nearest survivors from the
+          kernel's keys and group minima, the ``ptable_verify`` kernel
+          reads their k-mers from the block-sorted database and verifies
+          them exactly, and the hits are compacted into one packed buffer
+          (ops/compact).
 
 Two operating points, as in the JAX package: ``retry_overflow=False`` with
 a recall-measured k_blocks (``autotune_k_blocks``), whose correctness rests
@@ -30,7 +32,6 @@ import warnings
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .. import _device
 from ..core import embedding
@@ -229,22 +230,21 @@ def build_index(db_kmers: np.ndarray, generator: torch.Generator,
                     host_kmers=host_km, kmer_len=l)
 
 
-def _cascade_top_blocks(key: torch.Tensor, kb: int, group: int):
+def _cascade_top_blocks(key: torch.Tensor, gmin: torch.Tensor, kb: int):
     """EXACT nearest-kb block select in O(B/group) select work.
 
-    Stage 1 reduces the (C, B) keys to per-group minima over ``group``
-    consecutive blocks and top-k's the kb smallest groups; stage 2 top-k's
+    ``key`` (C, Bp) holds the inf-padded keys and ``gmin`` (C, Bp/group)
+    each group's minimum over ``group`` consecutive blocks, both from the
+    prune kernel.  Stage 1 top-k's the kb smallest groups; stage 2 top-k's
     the kb smallest blocks inside the selected groups.  If a true top-kb
     block sat in an unselected group, each of the kb selected groups would
     hold a distinct block at least as close — so the result is the same
     block set as the flat top-k (tie order may differ).
     """
-    c, b = key.shape
-    pad = (-b) % group
-    kp = F.pad(key, (0, pad), value=float("inf"))
-    ng = kp.shape[1] // group
-    kg = kp.reshape(c, ng, group)
-    gmin = torch.amin(kg, dim=2)                               # (C, B/G)
+    c, bp = key.shape
+    ng = gmin.shape[1]
+    group = bp // ng
+    kg = key.view(c, ng, group)
     ks = min(kb, ng)
     _, gsel = torch.topk(-gmin, ks, dim=1)                     # (C, ks)
     gkeys = torch.gather(kg, 1, gsel[:, :, None].expand(c, ks, group)) \
@@ -255,14 +255,15 @@ def _cascade_top_blocks(key: torch.Tensor, kb: int, group: int):
     return neg, blk_ids
 
 
-# blocks per stage-1 select group of the cascade
-_SELECT_GROUP = 64
+# blocks per stage-1 select group of the cascade: the prune kernel's group
+_SELECT_GROUP = cuda_kernels.PRUNE_GROUP
 
 
 def _search_block(index: IVFIndex, centers: torch.Tensor,
                   centers_emb: torch.Tensor, r: np.float32, k_blocks: int,
                   max_hits: int, cap_frac: int = 4, with_d2: bool = True):
-    """One center block: prune blocks, gather survivors, exact verify.
+    """One center block: prune blocks, select the nearest survivors, exact
+    verify.
 
     Returns (packed flat int32 buffer — ops/compact layout with
     meta = [n_hits (C), n_alive (C)]; ids (C, max_hits) sentinel-N and
@@ -271,31 +272,25 @@ def _search_block(index: IVFIndex, centers: torch.Tensor,
     """
     n = index.n_points
     bs = index.block_size
-    l = index.kmer_len
-    c = centers.shape[0]
-    key = cuda_kernels.sq_distance_prune(
+    b = index.num_blocks
+    key, gmin, n_alive = cuda_kernels.sq_distance_prune(
         centers_emb, index.block_centroid, index.block_radius, float(r))
-    n_alive = torch.sum(torch.isfinite(key), dim=1).to(torch.int32)
-    kb = min(k_blocks, key.shape[1])
-    if key.shape[1] >= 4 * _SELECT_GROUP:
-        neg, blk_ids = _cascade_top_blocks(key, kb, _SELECT_GROUP)
+    kb = min(k_blocks, b)
+    if b >= 4 * _SELECT_GROUP:
+        neg, blk_ids = _cascade_top_blocks(key, gmin, kb)
     else:
-        neg, blk_ids = torch.topk(-key, kb, dim=1)           # (C, kb)
-    blk_alive = torch.isfinite(neg)
-    safe_ids = torch.where(blk_alive, blk_ids, torch.zeros_like(blk_ids))
-    cand = index.db_sorted[safe_ids].reshape(c, -1, l)       # (C, kb*bs, L)
-    gids = index.order[safe_ids].reshape(c, -1)
-    gids = torch.where(torch.repeat_interleave(blk_alive, bs, dim=1), gids,
-                       torch.full_like(gids, n))
-    ptab = _center_ptables(centers, l)
-    d2 = cuda_kernels.ptable_verify(ptab, cand)              # (C, kb*bs)
+        neg, blk_ids = torch.topk(-key[:, :b], kb, dim=1)    # (C, kb)
+    ptab = _center_ptables(centers, index.kmer_len)
     # r is float32 and squared in float32, as the JAX package does
-    hits = (gids < n) & (d2 <= float(r * r))
-    n_hits = torch.sum(hits, dim=1).to(torch.int32)
-    d2m = torch.where(hits, d2, torch.full_like(d2, float("inf")))
+    d2m, n_hits = cuda_kernels.ptable_verify(
+        ptab, index.db_sorted, index.order, blk_ids, neg, float(r * r), n)
     negd, sel = torch.topk(-d2m, min(max_hits, d2m.shape[1]), dim=1)
-    out_ids = torch.where(torch.isfinite(negd), torch.gather(gids, 1, sel),
-                          torch.full_like(sel, n, dtype=gids.dtype))
+    found = torch.isfinite(negd)
+    # the hit's id: row sel % bs of the selected block sel // bs
+    slot = torch.gather(blk_ids, 1, sel // bs) * bs + sel % bs
+    out_ids = torch.where(found,
+                          index.order.view(-1)[torch.where(found, slot, 0)],
+                          torch.full_like(sel, n, dtype=index.order.dtype))
     out_d2 = -negd
     packed = compact.pack_hits(out_ids, out_d2, n,
                                meta_vecs=(n_hits, n_alive),
@@ -478,8 +473,8 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
     if retry_overflow and redo_ids.size and can_grow:
         # lossless overflow retry: re-search ONLY the overflowed centers
         # with a 4x block cap and a center block 4x smaller, so the
-        # (cb, kb*bs, L) candidate gather stays within the main pass's
-        # memory; kb is bounded by the block count, so this terminates
+        # (cb, kb*bs) verify output stays within the main pass's memory;
+        # kb is bounded by the block count, so this terminates
         kb2 = min(4 * kb_used, index.num_blocks)
         cb2 = max(1, (center_block * kb_used) // kb2)
         keep = ~np.isin(out_c, redo_ids)

@@ -110,7 +110,11 @@ def test_cascade_equals_flat_topk(rng, kb):
     c, b = 16, 5000
     key = rng.random((c, b)).astype(np.float32)
     key[rng.random((c, b)) < 0.3] = np.inf        # dead blocks
-    neg, ids = ivf._cascade_top_blocks(T(key), kb, 64)
+    # the prune kernel's outputs: keys inf-padded to whole groups, and
+    # each group's minimum
+    kp = np.pad(key, ((0, 0), (0, (-b) % 64)), constant_values=np.inf)
+    gmin = kp.reshape(c, -1, 64).min(axis=2)
+    neg, ids = ivf._cascade_top_blocks(T(kp), T(gmin), kb)
     fneg, fids = jax.lax.top_k(-jnp.asarray(key), kb)
 
     def live(n_, i_):
@@ -132,7 +136,7 @@ def test_jax_index_capped_kb_identical_hits(jax_index):
     # differ, so the selected block set does not depend on tie order
     key = np.sort(ck.sq_distance_prune(
         T(embedding.embed_kmers(centers)), idx.block_centroid,
-        idx.block_radius, radius).numpy(), axis=1)
+        idx.block_radius, radius)[0][:, :idx.num_blocks].numpy(), axis=1)
     assert (key[:, kb] == np.inf).sum() < len(centers)  # kb really caps
     kth, nxt = key[:, kb - 1], key[:, kb]
     assert np.all(~np.isfinite(kth) | (kth < nxt * (1 - 1e-5)))

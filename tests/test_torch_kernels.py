@@ -1,14 +1,18 @@
 """The CUDA kernels' plain versions against hsearch_tpu's Pallas kernels in
-interpret mode, at tests/test_pallas.py's shapes and tolerances; the CPU
-dispatch of the wrappers; and, on a machine with a CUDA device, each
-kernel against its plain version.
+interpret mode and the reference's own code around them, at
+tests/test_pallas.py's shapes and tolerances; the CPU dispatch of the
+wrappers; and, on a machine with a CUDA device, each kernel against its
+plain version at ragged shapes.
 
-The CUDA case needs neither jax nor tests/conftest.py, so it also runs on
+The CUDA cases need neither jax nor tests/conftest.py, so they also run on
 a GPU host without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernels.py
 """
+
+import re
+import subprocess
 
 import numpy as np
 import pytest
@@ -16,50 +20,149 @@ import torch
 
 from hsearch_tpu_torch.ops import cuda_kernels as ck
 from hsearch_tpu_torch.ops import distance as td
+from hsearch_tpu_torch.ops import kernel_checks as kc
+
+G = ck.PRUNE_GROUP
 
 
-def _prune_inputs(rng):
-    q = rng.normal(0, 10, (200, 80)).astype(np.float32)
-    c = rng.normal(0, 10, (300, 80)).astype(np.float32)
-    rad = np.abs(rng.normal(0, 5, 300)).astype(np.float32)
-    return q, c, rad
+def _prune_inputs(rng, c=200, b=300, d=80):
+    q = rng.normal(0, 10, (c, d)).astype(np.float32)
+    cent = rng.normal(0, 10, (b, d)).astype(np.float32)
+    rad = np.abs(rng.normal(0, 5, b)).astype(np.float32)
+    return q, cent, rad
+
+
+def _jax_stage1(key, b):
+    """hsearch_tpu/search/ivf.py's cascade stage 1 and n_alive lines on a
+    (C, B) key matrix: inf-pad to whole groups, per-group minimum."""
+    import jax.numpy as jnp
+    key = jnp.asarray(key)[:, :b]
+    n_alive = jnp.sum(jnp.isfinite(key), axis=1).astype(jnp.int32)
+    kp = jnp.pad(key, ((0, 0), (0, (-b) % G)), constant_values=jnp.inf)
+    gmin = jnp.min(kp.reshape(key.shape[0], -1, G), axis=2)
+    return np.asarray(gmin), np.asarray(n_alive)
 
 
 @pytest.mark.parametrize("r", [30.0, 121.5])   # 121.5: ~half the keys live
 def test_prune_plain_matches_pallas(rng, r):
     pk = pytest.importorskip("hsearch_tpu.ops.pallas_kernels")
     q, c, rad = _prune_inputs(rng)
+    b = c.shape[0]
     want = np.asarray(pk.sq_distance_prune(q, c, rad, r, interpret=True))
-    got = ck.sq_distance_prune_plain(torch.as_tensor(q), torch.as_tensor(c),
-                                     torch.as_tensor(rad), r).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+    key, gmin, n_alive = (x.numpy() for x in ck.sq_distance_prune_plain(
+        torch.as_tensor(q), torch.as_tensor(c), torch.as_tensor(rad), r))
+    assert key.shape == (200, 320) and gmin.shape == (200, 5)
+    np.testing.assert_allclose(key[:, :b], want, rtol=1e-4, atol=1e-3)
+    assert np.all(key[:, b:] == np.inf)
+    # the reference's stage 1 on the same keys: exact
+    jg, jn = _jax_stage1(key, b)
+    np.testing.assert_array_equal(gmin, jg)
+    np.testing.assert_array_equal(n_alive, jn)
+    # and on the reference's own keys: the same alive set, minima within
+    # the key tolerance
+    wg, wn = _jax_stage1(want, b)
+    np.testing.assert_array_equal(n_alive, wn)
+    np.testing.assert_allclose(gmin, wg, rtol=1e-4, atol=1e-3)
     if r > 100:
         assert 0.2 < np.isfinite(want).mean() < 0.8
 
 
-def test_ptable_verify_plain_matches_pallas(rng):
+@pytest.mark.parametrize("c,b", [(1, 64), (7, 63), (5, 129), (3, 1)])
+def test_prune_plain_groups_and_count(c, b):
+    """Padding, group minima and alive counts at group-edge shapes, against
+    the reference's stage-1 lines on the same keys (exact)."""
+    rng = np.random.default_rng(c * 1000 + b)
+    q, cent, rad = _prune_inputs(rng, c, b, 16)
+    dist = np.sqrt(((q[:, None, :].astype(np.float64) - cent[None]) ** 2)
+                   .sum(-1))
+    r = float(np.median(dist) - 2.5)
+    key, gmin, n_alive = ck.sq_distance_prune_plain(
+        torch.as_tensor(q), torch.as_tensor(cent), torch.as_tensor(rad), r)
+    bp = -(-b // G) * G
+    assert key.shape == (c, bp) and gmin.shape == (c, bp // G)
+    assert n_alive.dtype == torch.int32
+    jg, jn = _jax_stage1(key.numpy(), b)
+    np.testing.assert_array_equal(gmin.numpy(), jg)
+    np.testing.assert_array_equal(n_alive.numpy(), jn)
+    assert torch.all(key[:, b:] == float("inf"))
+
+
+def _jax_verify(ptab, db_sorted, order, blk_ids, neg, r, n):
+    """hsearch_tpu/search/ivf.py's _search_block from the gather to n_hits,
+    with the Pallas ptable_verify in interpret mode."""
     import jax.numpy as jnp
     pk = pytest.importorskip("hsearch_tpu.ops.pallas_kernels")
-    c, m, l = 6, 1000, 25
-    ptab = rng.random((c, l, 20)).astype(np.float32)
-    cand = rng.integers(0, 20, (c, m, l)).astype(np.int8)
-    want = np.asarray(pk.ptable_verify(jnp.asarray(ptab), jnp.asarray(cand),
-                                       interpret=True))
-    got = ck.ptable_verify_plain(torch.as_tensor(ptab),
-                                 torch.as_tensor(cand)).numpy()
-    np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-4)
+    c, kb = blk_ids.shape
+    bs, l = order.shape[1], ptab.shape[1]
+    r = jnp.float32(r)
+    blk_alive = jnp.isfinite(jnp.asarray(neg))
+    safe_ids = jnp.where(blk_alive, jnp.asarray(blk_ids, jnp.int32), 0)
+    cand = jnp.take(jnp.asarray(db_sorted), safe_ids, axis=0)
+    cand = cand.reshape(-1, kb * bs, l)
+    gids = jnp.take(jnp.asarray(order), safe_ids, axis=0).reshape(-1,
+                                                                  kb * bs)
+    gids = jnp.where(jnp.repeat(blk_alive, bs, axis=1), gids, n)
+    d2 = pk.ptable_verify(jnp.asarray(ptab), cand, interpret=True)
+    hits = (gids < n) & (d2 <= r * r)
+    n_hits = jnp.sum(hits, axis=1).astype(jnp.int32)
+    d2m = jnp.where(hits, d2, jnp.inf)
+    return np.asarray(d2m), np.asarray(n_hits), np.asarray(d2)
+
+
+def _radius_between(d2, want_frac=0.5):
+    """A radius whose square sits midway between two neighbouring d2
+    values, so summation-order noise cannot flip a hit."""
+    v = np.unique(d2.ravel())
+    i = int(len(v) * want_frac)
+    return float(np.sqrt((v[i] + v[i + 1]) / 2))
+
+
+def _check_verify_vs_jax(rng, c, kb, bs, l):
+    ptab, db_sorted, order, blk_ids, neg, _, n = kc.verify_inputs(
+        rng, c, kb, bs, l)
+    _, _, d2_all = _jax_verify(ptab, db_sorted, order, blk_ids, neg, 1.0, n)
+    r = _radius_between(d2_all)
+    want_d2m, want_hits, _ = _jax_verify(ptab, db_sorted, order, blk_ids,
+                                         neg, r, n)
+    r2 = float(np.float32(r) * np.float32(r))
+    d2m, n_hits = ck.ptable_verify_plain(
+        *(torch.as_tensor(x) for x in (ptab, db_sorted, order, blk_ids,
+                                       neg)), r2, n)
+    assert d2m.shape == (c, kb * bs) and n_hits.dtype == torch.int32
+    np.testing.assert_allclose(d2m.numpy(), want_d2m, rtol=2e-6, atol=1e-4)
+    np.testing.assert_array_equal(n_hits.numpy(), want_hits)
+    assert 0 < want_hits.sum() < np.isfinite(d2_all).sum()
+    # the verified distances are bitwise the plain P-table sums
+    alive = np.isfinite(neg)
+    safe = np.where(alive, blk_ids, 0)
+    cand = torch.as_tensor(db_sorted[safe].reshape(c, kb * bs, l))
+    d2 = td.ptable_distances(torch.as_tensor(ptab), cand).numpy()
+    hit = np.isfinite(d2m.numpy())
+    np.testing.assert_array_equal(d2m.numpy()[hit], d2[hit])
+
+
+def test_ptable_verify_plain_matches_pallas(rng):
+    _check_verify_vs_jax(rng, 6, 40, 8, 25)
+
+
+@pytest.mark.parametrize("c,kb,bs,l", [(3, 37, 8, 25), (4, 21, 32, 25),
+                                       (5, 9, 16, 10)])
+def test_ptable_verify_plain_matches_reference(c, kb, bs, l):
+    _check_verify_vs_jax(np.random.default_rng(kb), c, kb, bs, l)
 
 
 def test_cpu_wrappers_take_plain_versions(rng):
     q, c, rad = _prune_inputs(rng)
     qt, ct, rt = (torch.as_tensor(x) for x in (q, c, rad))
-    ptab = torch.rand(3, 7, 20)
-    cand = torch.randint(0, 20, (3, 50, 7)).to(torch.int8)
+    vin = [torch.as_tensor(x)
+           for x in kc.verify_inputs(rng, 3, 7, 8, 7)[:5]]
     ck.reset_launches()
-    assert torch.equal(ck.sq_distance_prune(qt, ct, rt, 121.5),
-                       ck.sq_distance_prune_plain(qt, ct, rt, 121.5))
-    assert torch.equal(ck.ptable_verify(ptab, cand),
-                       td.ptable_distances(ptab, cand))
+    for got, want in zip(ck.sq_distance_prune(qt, ct, rt, 121.5),
+                         ck.sq_distance_prune_plain(qt, ct, rt, 121.5)):
+        assert torch.equal(got, want)
+    for got, want in zip(ck.ptable_verify(*vin, 3.5, 1000),
+                         ck.ptable_verify_plain(*vin, 3.5, 1000)):
+        assert torch.equal(got, want)
     # the counts record kernel launches only
     assert ck.launch_counts() == {"sq_distance_prune": 0,
                                   "ptable_verify": 0}
@@ -74,25 +177,113 @@ def test_non_cpu_tensors_never_fall_back():
                              torch.empty(5, device="meta"), 1.0)
     with pytest.raises(ValueError, match="CUDA"):
         ck.ptable_verify(torch.empty((2, 3, 20), device="meta"),
-                         torch.empty((2, 9, 3), dtype=torch.int8,
-                                     device="meta"))
+                         torch.empty((9, 12), dtype=torch.int8,
+                                     device="meta"),
+                         torch.empty((9, 4), dtype=torch.int32,
+                                     device="meta"),
+                         torch.empty((2, 5), dtype=torch.int64,
+                                     device="meta"),
+                         torch.empty((2, 5), device="meta"), 1.0, 10)
+
+
+# ---- on the card -----------------------------------------------------------
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    return torch.device("cuda")
+
+
+def _check_prune_on_cuda(q, cent, rad, r):
+    """Kernel vs plain under kernel_checks.prune_agreement's tolerance and
+    flip rule: keys within rtol 1e-4 / atol 1e-3 (or 1e-3 +
+    1e-5 (|q|^2 + |c|^2) in d^2), liveness flips only within 1e-3 of
+    r + radius; gmin and n_alive exactly the kernel's own keys'."""
+    res = kc.prune_agreement(q, cent, rad, r,
+                             ck.sq_distance_prune(q, cent, rad, r),
+                             ck.sq_distance_prune_plain(q, cent, rad, r))
+    assert res["ok"], res
+
+
+def _check_verify_on_cuda(dev, rng, c, kb, bs, l):
+    """Kernel vs plain: d2m and n_hits bitwise equal."""
+    *arrays, r2, n = kc.verify_inputs(rng, c, kb, bs, l)
+    ins = [torch.as_tensor(x, device=dev) for x in arrays]
+    res = kc.verify_agreement(ck.ptable_verify(*ins, r2, n),
+                              ck.ptable_verify_plain(*ins, r2, n))
+    assert res["ok"], res
 
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc")
+    dev = _cuda()
     rng = np.random.default_rng(0)
-    dev = torch.device("cuda")
     q, c, rad = (torch.as_tensor(x, device=dev) for x in _prune_inputs(rng))
-    got = ck.sq_distance_prune(q, c, rad, 121.5)
-    want = ck.sq_distance_prune_plain(q, c, rad, 121.5)
-    both = torch.isfinite(got) & torch.isfinite(want)
-    assert both.any()
-    torch.testing.assert_close(got[both], want[both], rtol=1e-4, atol=1e-3)
-    ptab = torch.as_tensor(rng.random((6, 25, 20)).astype(np.float32),
-                           device=dev)
-    cand = torch.as_tensor(rng.integers(0, 20, (6, 1000, 25))
-                           .astype(np.int8), device=dev)
-    assert torch.equal(ck.ptable_verify(ptab, cand),
-                       ck.ptable_verify_plain(ptab, cand))
+    _check_prune_on_cuda(q, c, rad, 121.5)
+    _check_verify_on_cuda(dev, rng, 6, 40, 8, 25)
+
+
+# ragged: C not a multiple of the 128-row tile, B not a multiple of 64
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,b,d", [(200, 300, 80), (130, 1000, 200),
+                                   (1, 65, 8)])
+def test_prune_kernel_ragged_on_cuda(c, b, d):
+    dev = _cuda()
+    rng = np.random.default_rng(c + b)
+    q, cent, rad = (torch.as_tensor(x, device=dev)
+                    for x in _prune_inputs(rng, c, b, d))
+    r = float(torch.sqrt(td.sq_distance_matrix(q, cent)).median()) - 2.5
+    _check_prune_on_cuda(q, cent, rad, r)
+
+
+# ragged: kb*bs not a multiple of the 512-candidate tile; rows of 200
+# bytes (byte staging) and of 800 / 160 bytes (16-byte staging)
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,kb,bs,l", [(3, 37, 8, 25), (4, 70, 8, 25),
+                                       (5, 21, 32, 25), (2, 9, 16, 10)])
+def test_verify_kernel_ragged_on_cuda(c, kb, bs, l):
+    dev = _cuda()
+    _check_verify_on_cuda(dev, np.random.default_rng(kb), c, kb, bs, l)
+
+
+_SQRT_CHECK = r"""
+#include <cstdio>
+#include <cstdint>
+SQRT_NONNEG
+__global__ void check(unsigned long long* bad) {
+  for (uint64_t b = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
+       b < 0x7f800000ull; b += (uint64_t)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((uint32_t)b);
+    if (__float_as_uint(sqrt_nonneg(x)) != __float_as_uint(sqrtf(x)))
+      atomicAdd(bad, 1ull);
+  }
+}
+int main() {
+  unsigned long long* bad;
+  cudaMallocManaged(&bad, sizeof(*bad));
+  *bad = 0;
+  check<<<1056, 256>>>(bad);
+  if (cudaDeviceSynchronize() != cudaSuccess) return 1;
+  printf("%llu\n", *bad);
+  return 0;
+}
+"""
+
+
+@pytest.mark.cuda
+def test_prune_sqrt_is_sqrtf_on_cuda(tmp_path):
+    """The prune kernel's branch-free square root (csrc/prune.cu
+    sqrt_nonneg) is bitwise sqrtf on every non-negative finite float."""
+    _cuda()
+    src = (ck._SRC / "prune.cu").read_text()
+    fn = re.search(r"__device__ __forceinline__ float sqrt_nonneg\(float x\)"
+                   r" \{.*?\n\}\n", src, re.S)
+    assert fn, "sqrt_nonneg not found in prune.cu"
+    (tmp_path / "check.cu").write_text(
+        _SQRT_CHECK.replace("SQRT_NONNEG", fn.group(0)))
+    subprocess.run([ck._nvcc(), *ck.NVCC_FLAGS[:2], "-O3", "-o",
+                    str(tmp_path / "check"), str(tmp_path / "check.cu")],
+                   check=True, capture_output=True)
+    out = subprocess.run([str(tmp_path / "check")], check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip() == "0", f"{out.strip()} inputs differ from sqrtf"
