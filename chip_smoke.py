@@ -1,4 +1,5 @@
-"""GPU smoke run of hsearch_tpu_torch: kernels, main path, exactness, CLI.
+"""GPU smoke run of hsearch_tpu_torch: kernels, IVF and LSH search,
+exactness, k-mer clustering, CLI.
 
     python3 chip_smoke.py
 
@@ -13,22 +14,40 @@ Phases, each of which fails the run on error:
      main path's shapes (real index data) and at ragged small shapes:
      prune's keys within the stated tolerance and flip rule, its group
      minima and alive counts exactly those of its own keys; verify's
-     d2m and n_hits bitwise; then each kernel's time beside its plain
+     d2m and n_hits bitwise, at the IVF search's block size 32 and at the
+     LSH search's block size 1 (the deduplicated candidate ids of the
+     LSH tuned point, with sentinels, and the same ids with duplicates);
+     then each kernel's time beside its plain
      version's, its bound and the one PyTorch call that computes the
      same (torch.cdist for prune's distances), and, for verify, the time
      of the candidate gather it made unnecessary;
-  3. the main path at the bench workload (N = 2^20 k-mers, L = 25,
+  3. the IVF search at the bench workload (N = 2^20 k-mers, L = 25,
      4096 centers, R = 35): build_index, the exact oracle, ivf.search up
      the k_blocks ladder 128 -> 256 -> 512 until weighted recall >= 0.99,
      then 3 timed searches; kernel launch counts are read around it,
      and torch.profiler gives one search call's device time by kernel;
   4. the exactness contract (retry_overflow=True equals the oracle) on a
      2^16-point prefix;
-  5. the CLI: motif-search --engine ivf equals motif-search-exact.
+  5. the CLI: motif-search --engine ivf equals motif-search-exact,
+     --engine lsh (autotuned) finds a subset of it, and hclust2
+     --merge-radius writes a partition of its input;
+  6. the LSH engine on phase 3's database, 256 centers, at the
+     reference's point (K=4 L=4 W=50 P=1) and the tuned point (K=8 L=8
+     W=105 P=8, cand_max 2048, center block 32): build s, ms per search,
+     q/s, weighted recall against phase 3's oracle (>= 0.98 at the tuned
+     point), hits within the oracle's with d^2 agreeing; launch counts
+     and a profile of one tuned search call;
+  7. k-mer clustering on the same database: cluster_greedy (K=16 L=8
+     W=50 R=35) with its stage times, merge_by_center_distance at radius
+     35 with the kernel launches it made, cluster counts, sampled
+     same-family pair recall and the invariants (every row once, sampled
+     members within R of their head); the merge's index build timed
+     alone and a profile of its search over 4096 heads;
+     cluster_centroid (K=16 L=8) on a 2^18 prefix.
 
-Output: free-form progress lines; a ``kernels`` line and a ``main_path``
-line; the nvidia-smi name/power line; one JSON object ``{"kernels": [...]}``
-and, last, ``{"ok": true, "device": {...}}``.
+Output: free-form progress lines; ``kernels``, ``main_path``, ``lsh``
+and ``cluster`` lines; the nvidia-smi name/power line; one JSON object
+``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -55,11 +74,18 @@ N_LOG2, L, C, RADIUS = 20, 25, 4096, 35.0
 CENTER_BLOCK, MAX_HITS, ORACLE_BLOCK = 1024, 512, 256
 KB_LADDER = (128, 256, 512)
 EXACT_N_LOG2, EXACT_C = 16, 64
+# phase 6: LSH centers, recall gate of the tuned point
+LSH_C, LSH_RECALL_GATE = 256, 0.98
+# phase 7: cluster_centroid runs on a prefix of this size; the merge's
+# search is profiled over this many heads
+CENTROID_N_LOG2, MERGE_PROFILE_C = 18, 4096
 
 
-def protein_like_db(rng, n, l, family_size=64, query_n=256):
+def protein_like_db(rng, n, l, family_size=64, query_n=256,
+                    return_families=False):
     """Motif families (centers + Poisson-flip members): the bench workload
-    of the JAX package's bench.py, same numpy calls."""
+    of the JAX package's bench.py, same numpy calls.  return_families=True
+    also returns each row's family id."""
     nfam = max(1, n // family_size)
     query_n = min(query_n, nfam)
     fam = rng.integers(0, 20, (nfam, l), dtype=np.int32)
@@ -71,6 +97,8 @@ def protein_like_db(rng, n, l, family_size=64, query_n=256):
     sub = rng.integers(0, 20, (n, l))
     db = np.where(mask, sub, db).astype(np.int32)
     q = fam[rng.choice(nfam, query_n, replace=False)]
+    if return_families:
+        return db, q, which
     return db, q
 
 
@@ -133,17 +161,39 @@ def verify_small_inputs(rng, dev, c, kb, bs, l):
     return (*(torch.as_tensor(x, device=dev) for x in arrays), r2, n)
 
 
+def verify_bound(n_distinct, row_bytes, c, kb, bs, n_alive):
+    """verify's least time: each distinct selected block's rows and ids
+    read once, the tables, the select result (int64 ids, f32 keys), d2m
+    and n_hits written once; operations: L additions per alive row."""
+    nbytes = (n_distinct * (row_bytes + 4.0 * bs) + 4.0 * c * L * 20
+              + 12.0 * c * kb + 4.0 * c * kb * bs + 4.0 * c)
+    return _bound_ms(float(n_alive) * bs * L, nbytes)
+
+
+def lsh_configs():
+    """Phase 6's two operating points as (tag, config, cand_max)."""
+    from hsearch_tpu_torch.search import motif
+    return (("reference", motif.MotifSearchConfig(
+                hash_k=4, hash_l=4, w=50.0, radius=RADIUS, probes=1,
+                cand_limit=8192, center_block=256, max_hits=512), None),
+            ("tuned", motif.MotifSearchConfig(
+                hash_k=8, hash_l=8, w=105.0, radius=RADIUS, probes=8,
+                center_block=32, max_hits=512), 2048))
+
+
 def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
-        exact_n_log2=EXACT_N_LOG2, cli=True):
-    """All phases on ``device``; returns the kernel records and the main
-    path's record.  Raises on the first failed check."""
+        exact_n_log2=EXACT_N_LOG2, centroid_n_log2=CENTROID_N_LOG2,
+        cli=True):
+    """All phases on ``device``; returns the kernel records and the
+    records of the IVF, LSH and clustering phases.  Raises on the first
+    failed check."""
     import torch
     from hsearch_tpu_torch import _device
+    from hsearch_tpu_torch.core import embedding
     from hsearch_tpu_torch.ops import cuda_kernels as ck
     from hsearch_tpu_torch.ops import distance
-    from hsearch_tpu_torch.search import evaluate, exact, ivf
+    from hsearch_tpu_torch.search import evaluate, exact, ivf, motif
     from hsearch_tpu_torch.search.motif import _center_ptables
-    from hsearch_tpu_torch.core import embedding
 
     dev = _device.resolve(device)
     gen = torch.Generator().manual_seed(1)
@@ -157,7 +207,9 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
 
     # ---- phase 2: kernels vs plain versions ----------------------------
     rng = np.random.default_rng(0)
-    db, centers = protein_like_db(rng, 1 << n_log2, L, query_n=n_centers)
+    db, centers, fam = protein_like_db(rng, 1 << n_log2, L,
+                                       query_n=n_centers,
+                                       return_families=True)
     c_blk = min(center_block, centers.shape[0])
     idx2 = ivf.build_index(db, torch.Generator().manual_seed(0),
                            block_size=32, device=dev)
@@ -202,11 +254,46 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
           flush=True)
     print(f"phase2 verify small (5, kb 21, bs 32): {verify_small16}",
           flush=True)
+
+    # verify at block size 1, as the LSH search calls it: the deduplicated
+    # candidate ids (with sentinels) of the tuned point's first center
+    # block, and a ragged small shape with duplicate and dead ids
+    _, cfg_t, cm_t = lsh_configs()[1]
+    lidx = motif.build_index(db, torch.Generator().manual_seed(0), cfg_t,
+                             cand_max=cm_t, device=dev)
+    lc = min(cfg_t.center_block, centers.shape[0])
+    lcen = torch.as_tensor(centers[:lc], device=dev)
+    lids, _ = motif._candidates(
+        lidx, motif._query_codes(lidx, lcen, True, cfg_t.probes),
+        lidx.cand_max)
+    lneg = torch.where(lids < lidx.num_points, 0.0, float("inf"))
+    lr2 = float(np.float32(RADIUS * RADIUS))
+    largs = (_center_ptables(lcen, L), lidx.db_kmers, lidx.order, lids,
+             lneg, lr2, lidx.num_points)
+    verify_lsh = check_verify(ck, *largs)
+    # the same ids with every odd slot repeating its neighbour: duplicate
+    # ids beside the sentinels, at the same shape
+    ldup = lids.clone()
+    ldup[:, 1::2] = ldup[:, 0::2]
+    verify_lsh_dup = check_verify(
+        ck, *largs[:3], ldup,
+        torch.where(ldup < lidx.num_points, 0.0, float("inf")), *largs[5:])
+    verify_lsh_small = check_verify(ck, *verify_small_inputs(rng, dev, 5,
+                                                              777, 1, L))
+    print(f"phase2 verify lsh C={lc} M={lids.shape[1]} bs=1: {verify_lsh}",
+          flush=True)
+    print(f"phase2 verify lsh with duplicate ids: {verify_lsh_dup}",
+          flush=True)
+    print(f"phase2 verify lsh small (5, M 777, bs 1): {verify_lsh_small}",
+          flush=True)
     for name, res in (("prune bench", prune_bench),
                       ("prune small", prune_small),
                       ("verify bench", verify_bench),
                       ("verify small", verify_small),
-                      ("verify small 16-byte", verify_small16)):
+                      ("verify small 16-byte", verify_small16),
+                      ("verify lsh bs=1", verify_lsh),
+                      ("verify lsh bs=1 duplicate ids", verify_lsh_dup),
+                      ("verify lsh small bs=1", verify_lsh_small)):
         if not res["ok"]:
             raise AssertionError(f"{name} disagrees with its plain version:"
                                  f" {res}")
@@ -236,17 +323,21 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     # the (C, kb*bs, L) candidate and id gathers the previous path ran
     gather_ms = _time_ms(lambda: (idx2.db_sorted[safe].reshape(cq, -1, L),
                                   idx2.order[safe]), dev)
-    # the work the fused kernel needs: each distinct selected block's rows
-    # and ids once, the tables, the select result, d2m and n_hits
     n_distinct = int(torch.unique(blk[alive]).numel())
-    verify_bytes = (n_distinct * bsv * (L + 4) + 4.0 * cq * L * 20
-                    + 12.0 * cq * kbv + 4.0 * cq * kbv * bsv + 4.0 * cq)
-    verify_bound, verify_by = _bound_ms(
-        float(int(alive.sum())) * bsv * L, verify_bytes)
-    del idx2, ptab, vargs, blk, neg, safe, alive
+    verify_bnd, verify_by = verify_bound(n_distinct, bsv * L, cq, kbv, bsv,
+                                         int(alive.sum()))
+    # block size 1 at the LSH shape
+    lsh_ms = _time_ms(lambda: ck.ptable_verify(*largs), dev)
+    lsh_plain_ms = _time_ms(lambda: ck.ptable_verify_plain(*largs), dev)
+    lreal = lids < lidx.num_points
+    lsh_distinct = int(torch.unique(lids[lreal]).numel())
+    lsh_bnd, lsh_by = verify_bound(lsh_distinct, L, lc, lids.shape[1], 1,
+                                   int(lreal.sum()))
+    lsh_shape = [lc, int(lids.shape[1]), 1, L]
+    del idx2, ptab, vargs, blk, neg, safe, alive, lidx, lids, lneg, largs
+    del lreal, ldup
 
-    # ---- phase 3: the main path ----------------------------------------
-    ck.reset_launches()
+    # ---- phase 3: the IVF search ---------------------------------------
     t0 = time.perf_counter()
     index = ivf.build_index(db, torch.Generator().manual_seed(0),
                             block_size=32, device=dev)
@@ -265,6 +356,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                  str(w.message)]
     print(f"phase3 oracle {oracle_s:.3f} s, {len(gci)} hits, truncated: "
           f"{truncated or 'none'}", flush=True)
+    ck.reset_launches()
     rep, kb, stats = None, None, {}
     for kb in KB_LADDER:
         stats = {}
@@ -294,16 +386,13 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                center_block=c_blk, retry_overflow=False, stats_out={},
                pack_cap_frac=4, transfer_d2=True)
     search_d2_s = time.perf_counter() - t0
-    launches = ck.launch_counts()
+    by_path = {"ivf_search": ck.launch_counts()}
     print(f"phase3 search {search_s * 1e3:.3f} ms/call, {qps:.1f} q/s, "
-          f"launches {launches}; with transfer_d2=True "
+          f"launches {by_path['ivf_search']}; with transfer_d2=True "
           f"{search_d2_s * 1e3:.3f} ms", flush=True)
     if rep.recall < 0.99:
         raise AssertionError(f"weighted recall {rep.recall} < 0.99 at the "
                              f"top of the kb ladder")
-    if dev.type == "cuda" and min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched on the main path: "
-                             f"{launches}")
     # the oracle itself against a numpy brute force over all N
     r2 = float(np.float32(RADIUS * RADIUS))
     for c in range(4):
@@ -323,7 +412,10 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                  "search_ms_transfer_d2": search_d2_s * 1e3,
                  "hits": int(len(ci)), "truth_hits": int(len(gci)),
                  "stats": stats}
-    profile_search(index, centers, kb, c_blk, dev)
+    profile_call("ivf search", lambda: ivf.search(
+        index, centers, RADIUS, k_blocks=kb, max_hits=MAX_HITS,
+        center_block=c_blk, retry_overflow=False, stats_out={},
+        pack_cap_frac=4), dev)
     del index
 
     # ---- phase 4: exactness contract -----------------------------------
@@ -348,11 +440,28 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
         rows = np.unique(np.concatenate([gki[gci < 8], np.arange(1024)]))
         run_cli(db[rows], centers[:8], dev)
 
+    # ---- phase 6: the LSH engine ----------------------------------------
+    lsh, by_path["lsh_search"] = run_lsh(db, centers, (gci, gki, gd), dev)
+
+    # ---- phase 7: k-mer clustering --------------------------------------
+    cluster, by_path["hclust2_merge"] = run_cluster(db, fam, dev,
+                                                    centroid_n_log2)
+
+    if dev.type == "cuda":
+        need = {"ivf_search": ("sq_distance_prune", "ptable_verify"),
+                "lsh_search": ("ptable_verify",),
+                "hclust2_merge": ("sq_distance_prune", "ptable_verify")}
+        for path, names in need.items():
+            if min(by_path[path][n] for n in names) <= 0:
+                raise AssertionError(f"a kernel of the {path} path was not "
+                                     f"launched there: {by_path[path]}")
     kernels = [
         {"name": "sq_distance_prune", "route": "cuda",
          "source": "hsearch_tpu_torch/csrc/prune.cu",
          "replaces": "hsearch_tpu/ops/pallas_kernels.py:86",
-         "launches": launches["sq_distance_prune"],
+         "launches": sum(p["sq_distance_prune"] for p in by_path.values()),
+         "launches_by_path": {k: v["sq_distance_prune"]
+                              for k, v in by_path.items()},
          "max_abs_err": max(prune_bench["max_abs_err"],
                             prune_small["max_abs_err"]),
          "ms": prune_ms, "plain_ms": prune_plain_ms,
@@ -366,28 +475,207 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
         {"name": "ptable_verify", "route": "cuda",
          "source": "hsearch_tpu_torch/csrc/ptable_verify.cu",
          "replaces": "hsearch_tpu/ops/pallas_kernels.py:145",
-         "launches": launches["ptable_verify"],
+         "launches": sum(p["ptable_verify"] for p in by_path.values()),
+         "launches_by_path": {k: v["ptable_verify"]
+                              for k, v in by_path.items()},
          "max_abs_err": max(verify_bench["max_abs_err"],
                             verify_small["max_abs_err"],
-                            verify_small16["max_abs_err"]),
-         "bitwise": (verify_bench["bitwise"] and verify_small["bitwise"]
-                     and verify_small16["bitwise"]),
+                            verify_small16["max_abs_err"],
+                            verify_lsh["max_abs_err"],
+                            verify_lsh_dup["max_abs_err"],
+                            verify_lsh_small["max_abs_err"]),
+         "bitwise": all(v["bitwise"] for v in (
+             verify_bench, verify_small, verify_small16, verify_lsh,
+             verify_lsh_dup, verify_lsh_small)),
          "ms": verify_ms, "plain_ms": verify_plain_ms,
-         "bound_ms": verify_bound, "bound_by": verify_by,
+         "bound_ms": verify_bnd, "bound_by": verify_by,
          "distinct_blocks": n_distinct,
          "replaced_gather_ms": gather_ms,
          "library_ms": None,
-         "shape": [cq, kbv, bsv, L]},
+         "shape": [cq, kbv, bsv, L],
+         "lsh_bs1": {"shape": lsh_shape, "ms": lsh_ms,
+                     "plain_ms": lsh_plain_ms, "bound_ms": lsh_bnd,
+                     "bound_by": lsh_by, "distinct_ids": lsh_distinct}},
     ]
-    return kernels, main_path
+    return kernels, main_path, lsh, cluster
 
 
-def profile_search(index, centers, kb, c_blk, dev):
-    """Device time by kernel and the device's busy share over one search
-    call (torch.profiler); a measurement aid, so a profiler failure is
+def run_lsh(db, centers, truth, dev):
+    """Phase 6: both LSH operating points on phase 3's database, the first
+    LSH_C centers, against phase 3's oracle.  Returns the records and the
+    kernel launches of the LSH searches."""
+    import torch
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+    from hsearch_tpu_torch.search import evaluate, motif
+    gci, gki, gd = truth
+    nc = min(LSH_C, centers.shape[0])
+    cen = centers[:nc]
+    keep = gci < nc
+    tci, tki, tdd = gci[keep], gki[keep], gd[keep]
+    truth_d2 = dict(zip(zip(tci.tolist(), tki.tolist()),
+                        (tdd.astype(np.float64) ** 2).tolist()))
+    out = {}
+    ck.reset_launches()
+    for tag, cfg, cand_max in lsh_configs():
+        t0 = time.perf_counter()
+        index = motif.build_index(db, torch.Generator().manual_seed(0), cfg,
+                                  cand_max=cand_max, device=dev)
+        _sync(dev)
+        build_s = time.perf_counter() - t0
+        stats: dict = {}
+        motif.search(index, cen, cfg, stats_out=stats)          # warm
+        iters = 3
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            ci, ki, dd = motif.search(index, cen, cfg, stats_out=stats)
+        search_s = (time.perf_counter() - t0) / iters
+        rep = evaluate.recall_from_indices(tci, tki, tdd, ci, ki, RADIUS)
+        pairs = list(zip(ci.tolist(), ki.tolist()))
+        outside = [p for p in pairs if p not in truth_d2]
+        d2 = dd.astype(np.float64) ** 2
+        worst = max((abs(d2[i] - truth_d2[p]) / max(truth_d2[p], 1.0)
+                     for i, p in enumerate(pairs) if p in truth_d2),
+                    default=0.0)
+        rec = {"k": cfg.hash_k, "l": cfg.hash_l, "w": cfg.w,
+               "probes": cfg.probes, "cand_max": index.cand_max,
+               "center_block": cfg.center_block, "centers": nc,
+               "build_s": build_s, "search_ms": search_s * 1e3,
+               "qps": nc / search_s, "recall": rep.recall,
+               "hits": len(ci), "truth_hits": int(len(tci)),
+               "truncated": stats["truncated"], "skewed": stats["skewed"],
+               "hits_outside_oracle": len(outside),
+               "max_d2_rel_err": worst}
+        out[tag] = rec
+        print(f"phase6 lsh {tag}: {json.dumps(rec)}", flush=True)
+        if outside or worst > 1e-5:
+            raise AssertionError(f"lsh {tag}: {len(outside)} hits outside "
+                                 f"the oracle, d2 rel err {worst}")
+        if tag == "tuned":
+            if rep.recall < LSH_RECALL_GATE:
+                raise AssertionError(f"lsh tuned recall {rep.recall} < "
+                                     f"{LSH_RECALL_GATE}")
+            launches = ck.launch_counts()
+            profile_call("lsh tuned search", lambda: motif.search(
+                index, cen, cfg, stats_out={}), dev)
+        del index
+    print(f"phase6 launches {launches}", flush=True)
+    return out, launches
+
+
+def pair_recall(labels, fam, n_pairs=200_000):
+    """Fraction of sampled same-family row pairs sharing a label (the
+    JAX package's examples/bench_engines.py metric, same sampling)."""
+    prng = np.random.default_rng(1)
+    order = np.argsort(fam, kind="stable")
+    f = fam[order]
+    starts = np.searchsorted(f, np.arange(f.max() + 2))
+    sizes = np.diff(starts)
+    ok_fam = np.nonzero(sizes >= 2)[0]
+    fs = prng.choice(ok_fam, n_pairs)
+    a = starts[fs] + (prng.random(n_pairs) * sizes[fs]).astype(int)
+    b = starts[fs] + (prng.random(n_pairs) * sizes[fs]).astype(int)
+    m = a != b
+    ra, rb = order[a[m]], order[b[m]]
+    return float((labels[ra] == labels[rb]).mean())
+
+
+def run_cluster(db, fam, dev, centroid_n_log2):
+    """Phase 7: greedy clustering + center-distance merge on the whole
+    database, centroid clustering on a prefix.  Returns the record and
+    the kernel launches of the merge."""
+    import torch
+    from hsearch_tpu_torch.cluster import centroid, greedy, postprocess
+    from hsearch_tpu_torch.core import embedding
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+    from hsearch_tpu_torch.search import ivf
+    n = db.shape[0]
+    cfg = greedy.ClusterConfig(hash_k=16, hash_l=8, w=50.0, radius=RADIUS)
+    stages: dict = {}
+    t0 = time.perf_counter()
+    res = greedy.cluster_greedy(db, torch.Generator().manual_seed(1), cfg,
+                                device=dev, stats_out=stages)
+    greedy_s = time.perf_counter() - t0
+    lab = np.where(res.parent >= 0, res.parent, np.arange(n))
+    n_heads = int((res.merged != 2).sum())
+    # invariants: every row once; sampled members within R of their head
+    clusters = res.clusters()
+    if not np.array_equal(np.sort(np.concatenate(clusters)), np.arange(n)):
+        raise AssertionError("greedy clusters are not a partition")
+    srng = np.random.default_rng(2)
+    child = np.nonzero(res.parent >= 0)[0]
+    sample = srng.choice(child, min(20000, len(child)), replace=False)
+    dmax = float(np.sqrt(embedding.DISTANCE_SQUARE[
+        db[sample], db[res.parent[sample]]].sum(-1)).max()) \
+        if len(sample) else 0.0
+    if dmax > RADIUS + 1e-3:
+        raise AssertionError(f"a member lies {dmax} from its head > R")
+    recall_greedy = pair_recall(lab, fam)
+    print(f"phase7 greedy {greedy_s:.3f} s ({stages}), {n_heads} clusters, "
+          f"pair recall {recall_greedy:.4f}, max sampled member distance "
+          f"{dmax:.3f}", flush=True)
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as wlog:
+        warnings.simplefilter("always")
+        mlab = postprocess.merge_by_center_distance(
+            db, lab, RADIUS, torch.Generator().manual_seed(3), device=dev)
+    merge_s = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    n_merged = int(len(np.unique(mlab)))
+    if not np.isin(mlab, np.nonzero(res.merged != 2)[0]).all():
+        raise AssertionError("a merged label is not a greedy head")
+    recall_merged = pair_recall(mlab, fam)
+    print(f"phase7 merge {merge_s:.3f} s, {n_merged} clusters, pair recall "
+          f"{recall_merged:.4f}, launches {launches}, warnings "
+          f"{[str(w.message) for w in wlog]}", flush=True)
+    # where the merge's time goes: its index build alone, and a profile of
+    # its search over the first MERGE_PROFILE_C heads (outside the counted
+    # launches)
+    heads = np.unique(lab)
+    t0 = time.perf_counter()
+    hidx = ivf.build_index(db[heads], torch.Generator().manual_seed(3),
+                           block_size=32, device=dev)
+    _sync(dev)
+    merge_build_s = time.perf_counter() - t0
+    print(f"phase7 merge index build {merge_build_s:.3f} s "
+          f"({len(heads)} heads)", flush=True)
+    profile_call(f"merge search of {min(MERGE_PROFILE_C, len(heads))} "
+                 f"heads", lambda: ivf.search(
+                     hidx, db[heads[:MERGE_PROFILE_C]], RADIUS,
+                     k_blocks=128, retry_overflow=False, stats_out={}), dev)
+    del hidx
+    nc = min(n, 1 << centroid_n_log2)
+    t0 = time.perf_counter()
+    members = centroid.cluster_centroid(
+        db[:nc], torch.Generator().manual_seed(2),
+        centroid.CentroidConfig(hash_k=16, hash_l=8, w=50.0, radius=RADIUS),
+        device=dev)
+    centroid_s = time.perf_counter() - t0
+    clab = np.empty(nc, np.int64)
+    for i, grp in enumerate(members):
+        clab[grp] = i
+    if not np.array_equal(np.sort(np.concatenate(members)), np.arange(nc)):
+        raise AssertionError("centroid clusters are not a partition")
+    recall_centroid = pair_recall(clab, fam[:nc])
+    print(f"phase7 centroid on {nc} rows {centroid_s:.3f} s, "
+          f"{len(members)} clusters, pair recall {recall_centroid:.4f}",
+          flush=True)
+    rec = {"n": n, "greedy_s": greedy_s, "greedy_stages": stages,
+           "greedy_clusters": n_heads, "greedy_pair_recall": recall_greedy,
+           "merge_s": merge_s, "merge_index_build_s": merge_build_s,
+           "merged_clusters": n_merged,
+           "merged_pair_recall": recall_merged, "merge_launches": launches,
+           "centroid_n": nc, "centroid_s": centroid_s,
+           "centroid_clusters": len(members),
+           "centroid_pair_recall": recall_centroid}
+    return rec, launches
+
+
+def profile_call(label, fn, dev):
+    """Device time by kernel and the device's idle share over one call
+    (torch.profiler); a measurement aid, so a profiler failure is
     reported and does not fail the run."""
     import torch
-    from hsearch_tpu_torch.search import ivf
     if dev.type != "cuda":
         return
     try:
@@ -395,10 +683,7 @@ def profile_search(index, centers, kb, c_blk, dev):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            ivf.search(index, centers, RADIUS, k_blocks=kb,
-                       max_hits=MAX_HITS, center_block=c_blk,
-                       retry_overflow=False, stats_out={},
-                       pack_cap_frac=4)
+            fn()
             torch.cuda.synchronize(dev)
             wall_us = (time.perf_counter() - t0) * 1e6
         events = prof.key_averages()
@@ -408,7 +693,7 @@ def profile_search(index, centers, kb, c_blk, dev):
                        and e.device_type == torch.autograd.DeviceType.CUDA),
                       reverse=True)
         busy = sum(t for t, _, _ in rows)
-        print(f"profile one search: wall {wall_us / 1e3:.3f} ms, device "
+        print(f"profile one {label}: wall {wall_us / 1e3:.3f} ms, device "
               f"busy {busy / 1e3:.3f} ms (idle share "
               f"{max(0.0, 1 - busy / wall_us):.3f})", flush=True)
         for t, k, n in rows[:15]:
@@ -419,8 +704,10 @@ def profile_search(index, centers, kb, c_blk, dev):
 
 
 def run_cli(db, centers, dev):
-    """motif-search --engine ivf (defaults otherwise) == motif-search-exact
-    on a small k-mer FASTA, in a child process."""
+    """On a small k-mer FASTA, in child processes: motif-search --engine
+    ivf (defaults otherwise) == motif-search-exact; --engine lsh (the
+    default autotune) finds a subset of it with the same distances; and
+    hclust2 --merge-radius writes every row once."""
     aa = "ARNDCQEGHILKMFPSTWYV"
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
@@ -433,26 +720,49 @@ def run_cli(db, centers, dev):
                     f.write(f">{name}{i}\n{''.join(aa[x] for x in r)}\n")
         outs = {}
         for tool, extra in (("motif-search-exact", []),
-                            ("motif-search", ["--engine", "ivf"])):
+                            ("motif-search", ["--engine", "ivf"]),
+                            ("lsh", ["--engine", "lsh"])):
             out = os.path.join(tmp, f"{tool}.txt")
-            cmd = [sys.executable, "-m", "hsearch_tpu_torch", tool,
+            cmd = [sys.executable, "-m", "hsearch_tpu_torch",
+                   "motif-search" if tool == "lsh" else tool,
                    "-d", paths["db"], "-c", paths["centers"], "-l", str(L),
                    "-T", str(RADIUS), "-o", out, "--device", dev.type,
                    *extra]
             subprocess.run(cmd, check=True, env=env, cwd=tmp, timeout=300)
             with open(out) as f:
                 outs[tool] = [ln.split() for ln in f]
+        clusters = os.path.join(tmp, "clusters.txt")
+        subprocess.run([sys.executable, "-m", "hsearch_tpu_torch", "hclust2",
+                        "-d", paths["db"], "-o", clusters, "-l", str(L),
+                        "-k", "16", "-L", "8", "-T", str(RADIUS),
+                        "--merge-radius", str(RADIUS), "--device",
+                        dev.type], check=True, env=env, cwd=tmp,
+                       timeout=300)
+        with open(clusters) as f:
+            lines = [ln.rstrip("\n") for ln in f]
     exact_t = {(a, b): float(d) for a, b, d in outs["motif-search-exact"]}
     ivf_t = {(a, b): float(d) for a, b, d in outs["motif-search"]}
+    lsh_t = {(a, b): float(d) for a, b, d in outs["lsh"]}
     if set(exact_t) != set(ivf_t) or not exact_t:
         raise AssertionError(f"CLI ivf ({len(ivf_t)} triples) != exact "
                              f"({len(exact_t)} triples)")
     worst = max(abs(exact_t[k] - ivf_t[k]) for k in exact_t)
     if worst > 1e-3:
         raise AssertionError(f"CLI distances differ by up to {worst}")
+    if not set(lsh_t) <= set(exact_t) or not lsh_t:
+        raise AssertionError(f"CLI lsh ({len(lsh_t)} triples) is not a "
+                             "non-empty subset of exact")
+    lsh_worst = max(abs(exact_t[k] - lsh_t[k]) for k in lsh_t)
+    n_members = sum(1 for ln in lines if ln and not ln.startswith("#"))
+    n_clusters = sum(1 for ln in lines if ln.startswith("#clusterid"))
+    if n_members != len(db) or not n_clusters:
+        raise AssertionError(f"CLI hclust2 wrote {n_members} members in "
+                             f"{n_clusters} clusters for {len(db)} rows")
     print(f"phase5 CLI: motif-search --engine ivf == motif-search-exact "
-          f"({len(exact_t)} triples, max |dist diff| {worst:.2e})",
-          flush=True)
+          f"({len(exact_t)} triples, max |dist diff| {worst:.2e}); "
+          f"--engine lsh {len(lsh_t)} triples within them (max |dist "
+          f"diff| {lsh_worst:.2e}); hclust2 --merge-radius {n_clusters} "
+          f"clusters over {n_members} rows", flush=True)
 
 
 def main() -> int:
@@ -471,9 +781,11 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
           f" x{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    kernels, main_path = run("cuda")
+    kernels, main_path, lsh, cluster = run("cuda")
     print("kernels " + json.dumps(kernels))
     print("main_path " + json.dumps(main_path))
+    print("lsh " + json.dumps(lsh))
+    print("cluster " + json.dumps(cluster))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))

@@ -3,12 +3,20 @@
 Each module keeps the name and place of its counterpart in ``hsearch_tpu``
 (the JAX package, which stays the reference the port is tested against):
 
-  core/        alphabet, BLOSUM62, metric embedding, FASTA/datapoints IO
-  ops/         distances, packed hit transfer, hand-written CUDA kernels
-               (csrc/*.cu, built with nvcc at first use)
-  search/      exact oracle, block-pruned IVF engine, recall evaluation
-  utils/       index checkpointing (the ``ivf`` .npz kind)
-  cli          ``python -m hsearch_tpu_torch motif-search[-exact]``
+  core/        alphabet, BLOSUM62, metric embedding, FASTA/datapoints/
+               cluster-file IO
+  ops/         distances, packed hit transfer, sorted-code hash tables,
+               hand-written CUDA kernels (csrc/*.cu, built with nvcc at
+               first use)
+  lsh/         p-stable LSH and its operating-point sweep
+  search/      exact oracle, block-pruned IVF engine, LSH motif search,
+               recall evaluation
+  cluster/     greedy (hclust2/3) and centroid (hclust) k-mer clustering,
+               the center-distance merge, post-processing, union-find
+  utils/       index checkpointing (the ``ivf`` and ``motif`` .npz kinds)
+  cli          ``python -m hsearch_tpu_torch <tool>``: motif-search,
+               motif-search-exact, lsh-sweep, hclust2/3, hclust,
+               postprocess
 
 The port imports torch and numpy only — never jax, never hsearch_tpu.
 Every entry point takes ``device`` (default ``"cuda"``) and raises when

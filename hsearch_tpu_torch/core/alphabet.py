@@ -1,5 +1,5 @@
 """Amino-acid alphabet and integer encodings (own copy of the parts of
-hsearch_tpu/core/alphabet.py that the motif-search CLI needs).
+hsearch_tpu/core/alphabet.py that the search and clustering tools need).
 
 A protein/k-mer is a ``uint8``/``int32`` array of AA indices in the
 canonical BLOSUM62 order ``ARNDCQEGHILKMFPSTWYV``.
@@ -37,6 +37,26 @@ def decode(idx: np.ndarray) -> str:
     ok = idx < 20
     out[ok] = _INDEX_TO_BYTE[idx[ok]]
     return out.tobytes().decode()
+
+
+def decode_all(idx: np.ndarray) -> np.ndarray:
+    """(N, L) index matrix -> (N,) array of strings, vectorized."""
+    idx = np.ascontiguousarray(idx)
+    l = idx.shape[1]
+    out = np.full(idx.shape, ord("X"), dtype=np.uint8)
+    ok = idx < 20
+    out[ok] = _INDEX_TO_BYTE[idx[ok]]
+    return out.view(f"S{l}").ravel().astype(str)
+
+
+def kmer_view(idx: np.ndarray, k: int, stride: int = 1) -> np.ndarray:
+    """All length-k windows of a 1-D index array as an (n, k) strided view."""
+    idx = np.ascontiguousarray(idx)
+    n = idx.shape[0] - k + 1
+    if n <= 0:
+        return np.empty((0, k), dtype=idx.dtype)
+    view = np.lib.stride_tricks.sliding_window_view(idx, k)
+    return view[::stride]
 
 
 def randomize_unknown_at(idx: np.ndarray, seed: int,

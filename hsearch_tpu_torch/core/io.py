@@ -1,5 +1,5 @@
 """Text-format IO at the pipeline boundary (own copy of the parts of
-hsearch_tpu/core/io.py that motif search needs).
+hsearch_tpu/core/io.py that motif search and clustering need).
 
   * FASTA protein databases (pure-Python parser; it gives the same
     ``ProteinDB`` as the JAX package's native parser, including the
@@ -7,6 +7,8 @@ hsearch_tpu/core/io.py that motif search needs).
   * "data points" files: a header line ``name#proteinIdx$offset@KMER*count``
     followed by one line of 8L floats.
   * hit "triples": ``center kmer distance`` per line.
+  * cluster files: ``#clusterid:<i>:size<n>`` or ``#cluster<i>`` headers,
+    one member per line.
 """
 
 from __future__ import annotations
@@ -163,3 +165,43 @@ def read_triples(path_or_file):
         if close:
             f.close()
     return out
+
+
+def write_clusters(path_or_file, clusters: list[list[str]],
+                   style: str = "hclust2") -> None:
+    """Cluster membership blocks.
+
+    style='hclust2': ``#clusterid:<i>:size<n>`` headers (hclust2.cpp:142);
+    style='hclust':  ``#cluster<i>`` headers (hclust.cpp:304).
+    """
+    f, close = _open(path_or_file, "w")
+    try:
+        for i, members in enumerate(clusters):
+            if style == "hclust2":
+                f.write(f"#clusterid:{i}:size{len(members)}\n")
+            else:
+                f.write(f"#cluster{i}\n")
+            for m in members:
+                f.write(m + "\n")
+    finally:
+        if close:
+            f.close()
+
+
+def read_clusters(path_or_file) -> list[list[str]]:
+    """Member lists of a cluster file written by ``write_clusters``."""
+    f, close = _open(path_or_file, "r")
+    clusters: list[list[str]] = []
+    try:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            if line.startswith("#cluster"):
+                clusters.append([])
+            elif clusters:
+                clusters[-1].append(line)
+    finally:
+        if close:
+            f.close()
+    return clusters

@@ -5,7 +5,10 @@
 // Replaces: hsearch_tpu/ops/pallas_kernels.py:ptable_verify
 //           (kernel body _ptable_verify_kernel), and the candidate gather
 //           and hit test around it in hsearch_tpu/search/ivf.py
-//           (_search_block).
+//           (_search_block) and, at block size 1, in
+//           hsearch_tpu/search/motif.py (_probe_verify: the LSH search's
+//           deduplicated candidate ids are its blocks, the database rows
+//           with order = arange(N+1) its block layout).
 //
 //   for candidate m = j*bs + i of center c (block j of kb, row i of bs):
 //     blk    = blk_ids[c, j], alive iff neg[c, j] is finite
@@ -67,9 +70,10 @@ verify_kernel(const float* __restrict__ ptab,
   const int tid = threadIdx.x;
   const int row_bytes = bs * L;
 
-  if (tid < nb) {
-    const size_t k = (size_t)c * kb + j0 + tid;
-    s_blk[tid] = isfinite(neg[k]) ? (int)blk_ids[k] : -1;
+  // a tile holds up to TILE_CAND blocks (512 at bs = 1), more than THREADS
+  for (int j = tid; j < nb; j += THREADS) {
+    const size_t k = (size_t)c * kb + j0 + j;
+    s_blk[j] = isfinite(neg[k]) ? (int)blk_ids[k] : -1;
   }
   const float* tsrc = ptab + (size_t)c * L * NAA;
   for (int i = tid; i < L * NAA; i += THREADS) tab[i] = tsrc[i];

@@ -36,7 +36,7 @@ import torch
 from .. import _device
 from ..core import embedding
 from ..ops import compact, cuda_kernels, distance
-from .motif import _center_ptables
+from .motif import _center_ptables, _check_kmers
 
 
 @dataclasses.dataclass
@@ -65,14 +65,6 @@ class IVFIndex:
     @property
     def device(self) -> torch.device:
         return self.db_sorted.device
-
-
-def _check_kmers(kmers: np.ndarray, what: str) -> None:
-    """Reject k-mer entries outside the 20 amino-acid indices: the verify
-    kernel indexes its shared-memory P-table with them unchecked."""
-    if kmers.size and (kmers.min() < 0 or kmers.max() >= 20):
-        raise ValueError(f"{what} must hold amino-acid indices in [0, 20); "
-                         f"got values in [{kmers.min()}, {kmers.max()}]")
 
 
 def _sample_centroids(km: torch.Tensor, generator: torch.Generator,

@@ -1,8 +1,9 @@
 """Index serialization (counterpart of hsearch_tpu/utils/checkpoint.py).
 
-The ``ivf`` kind only, in the JAX package's ``.npz`` format (arrays plus a
-small json header), readable and writable with numpy alone — so an index
-built by either package can be searched by the other.
+The ``ivf`` and ``motif`` kinds, in the JAX package's ``.npz`` format
+(arrays plus a small json header, with the same field names), readable and
+writable with numpy alone — so an index built by either package can be
+searched by the other.
 """
 
 from __future__ import annotations
@@ -13,21 +14,34 @@ import numpy as np
 import torch
 
 from .. import _device
-from ..search import ivf
+from ..search import ivf, motif
 
 
-def save_index(path: str, index: ivf.IVFIndex) -> None:
-    """Serialize an IVFIndex to ``path`` (.npz, kind ``ivf``)."""
-    if not isinstance(index, ivf.IVFIndex):
+def save_index(path: str, index) -> None:
+    """Serialize an IVFIndex (kind ``ivf``) or a MotifIndex (kind
+    ``motif``) to ``path`` (.npz)."""
+    if isinstance(index, motif.MotifIndex):
+        np.savez_compressed(
+            path, __kind__="motif",
+            meta=json.dumps({"cand_max": index.cand_max,
+                             "w": index.params.w,
+                             "pack_bits": index.params.pack_bits}),
+            a=index.params.a.cpu().numpy(), b=index.params.b.cpu().numpy(),
+            sorted_codes=index.tables.sorted_codes.cpu().numpy(),
+            perm=index.tables.perm.cpu().numpy(),
+            # the JAX package keeps the padded k-mers as int32
+            db_kmers=index.db_kmers.cpu().numpy().astype(np.int32))
+    elif isinstance(index, ivf.IVFIndex):
+        np.savez_compressed(
+            path, __kind__="ivf",
+            meta=json.dumps({"n_points": index.n_points,
+                             "kmer_len": index.kmer_len}),
+            db_sorted=index.db_sorted.cpu().numpy(),
+            order=index.order.cpu().numpy(),
+            block_centroid=index.block_centroid.cpu().numpy(),
+            block_radius=index.block_radius.cpu().numpy())
+    else:
         raise TypeError(f"unknown index type {type(index)}")
-    np.savez_compressed(
-        path, __kind__="ivf",
-        meta=json.dumps({"n_points": index.n_points,
-                         "kmer_len": index.kmer_len}),
-        db_sorted=index.db_sorted.cpu().numpy(),
-        order=index.order.cpu().numpy(),
-        block_centroid=index.block_centroid.cpu().numpy(),
-        block_radius=index.block_radius.cpu().numpy())
 
 
 def index_from_arrays(db_sorted: np.ndarray, order: np.ndarray,
@@ -56,15 +70,20 @@ def index_from_arrays(db_sorted: np.ndarray, order: np.ndarray,
         n_points=int(n_points), host_kmers=host_km, kmer_len=int(kmer_len))
 
 
-def load_index(path: str, device: str | torch.device = "cuda"
-               ) -> ivf.IVFIndex:
-    """Load an ``ivf``-kind index saved by either package onto ``device``."""
+def load_index(path: str, device: str | torch.device = "cuda"):
+    """Load an ``ivf`` or ``motif`` index saved by either package onto
+    ``device``."""
     z = np.load(path, allow_pickle=False)
     kind = str(z["__kind__"])
+    meta = json.loads(str(z["meta"]))
+    if kind == "motif":
+        return motif.index_from_arrays(
+            z["a"], z["b"], float(meta["w"]), int(meta["pack_bits"]),
+            z["sorted_codes"], z["perm"], z["db_kmers"],
+            int(meta["cand_max"]), device)
     if kind != "ivf":
         raise ValueError(f"index kind {kind!r} in {path} is not ported yet "
-                         "(only 'ivf' loads)")
-    meta = json.loads(str(z["meta"]))
+                         "(only 'ivf' and 'motif' load)")
     ds = z["db_sorted"]
     kmer_len = int(ds.shape[2]) if ds.ndim == 3 else int(meta["kmer_len"])
     return index_from_arrays(ds, z["order"], z["block_centroid"],

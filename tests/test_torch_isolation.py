@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from hsearch_tpu_torch import cli
-from hsearch_tpu_torch.search import exact, ivf
+from hsearch_tpu_torch.cluster import centroid, greedy, postprocess
+from hsearch_tpu_torch.lsh import tuning
+from hsearch_tpu_torch.search import exact, ivf, motif
 from hsearch_tpu_torch.utils import checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,7 +42,8 @@ def test_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 15      # every module was found
+    # every module was found, lsh/ and cluster/ included
+    assert int(res.stdout.split()[-1]) >= 29
 
 
 ENTRY_POINTS = {
@@ -50,6 +53,22 @@ ENTRY_POINTS = {
     "checkpoint.index_from_arrays": lambda db: checkpoint.index_from_arrays(
         db.reshape(4, -1).astype(np.int8), np.arange(16).reshape(4, 4),
         np.zeros((4, 40), np.float32), np.zeros(4, np.float32), 16, 5),
+    "motif.build_index": lambda db: motif.build_index(db, torch.Generator()),
+    "motif.index_from_arrays": lambda db: motif.index_from_arrays(
+        np.zeros((1, 40, 4)), np.zeros((1, 4)), 50.0, 7,
+        np.zeros((1, 16), np.int32), np.zeros((1, 16), np.int32),
+        np.zeros((17, 5), np.int32), 4),
+    "tuning.sweep": lambda db: tuning.sweep(db, db[:2], 5.0),
+    "greedy.cluster_greedy": lambda db: greedy.cluster_greedy(
+        db, torch.Generator()),
+    "centroid.cluster_centroid": lambda db: centroid.cluster_centroid(
+        db, torch.Generator()),
+    "postprocess.merge_by_center_distance":
+        lambda db: postprocess.merge_by_center_distance(
+            db, np.arange(16), 5.0, torch.Generator()),
+    "postprocess.center_distance_samples":
+        lambda db: postprocess.center_distance_samples(
+            np.zeros((3, 40), np.float32)),
 }
 
 
@@ -68,3 +87,24 @@ def test_cli_default_device_raises_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["motif-search-exact", "-d", str(fa), "-c", str(fa),
                   "-l", "10", "-o", str(tmp_path / "o.txt")])
+
+
+CLI_TOOLS = {
+    "motif-search-lsh": ["motif-search", "-c", "{fa}", "-o", "{out}",
+                         "--engine", "lsh", "-k", "4"],
+    "lsh-sweep": ["lsh-sweep", "-c", "{fa}"],
+    "hclust2": ["hclust2", "-o", "{out}"],
+    "hclust3": ["hclust3", "-o", "{out}", "--merge-radius", "5"],
+    "hclust": ["hclust", "-o", "{out}"],
+}
+
+
+@pytest.mark.parametrize("tool", sorted(CLI_TOOLS))
+def test_new_cli_tools_raise_without_cuda(monkeypatch, tmp_path, tool):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fa = tmp_path / "k.fasta"
+    fa.write_text(">a\nARNDCQEGHI\n>b\nARNDCQEGHV\n")
+    args = [a.format(fa=fa, out=tmp_path / "o.txt")
+            for a in CLI_TOOLS[tool]]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main([*args, "-d", str(fa), "-l", "10"])

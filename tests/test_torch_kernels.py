@@ -2,7 +2,8 @@
 interpret mode and the reference's own code around them, at
 tests/test_pallas.py's shapes and tolerances; the CPU dispatch of the
 wrappers; and, on a machine with a CUDA device, each kernel against its
-plain version at ragged shapes.
+plain version at ragged shapes (verify also at block size 1, as the LSH
+search calls it) and the LSH search on the card against the CPU.
 
 The CUDA cases need neither jax nor tests/conftest.py, so they also run on
 a GPU host without JAX:
@@ -244,6 +245,61 @@ def test_prune_kernel_ragged_on_cuda(c, b, d):
 def test_verify_kernel_ragged_on_cuda(c, kb, bs, l):
     dev = _cuda()
     _check_verify_on_cuda(dev, np.random.default_rng(kb), c, kb, bs, l)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,m", [(32, 4096), (5, 777)])
+def test_verify_kernel_bs1_on_cuda(c, m):
+    """The verify kernel at block size 1, as the LSH search calls it: the
+    database rows are the blocks (order = arange, a zero sentinel row
+    last), ids with duplicates and sentinels; bitwise equal to the plain
+    version."""
+    dev = _cuda()
+    rng = np.random.default_rng(m)
+    n, l = 5000, 25
+    db = np.zeros((n + 1, l), np.int8)
+    db[:n] = rng.integers(0, 20, (n, l))
+    ids = np.sort(rng.integers(0, n + 1, (c, m)), axis=1)
+    neg = np.where(ids < n, 0.0, np.inf).astype(np.float32)
+    ptab = rng.random((c, l, 20)).astype(np.float32)
+    args = [torch.as_tensor(x, device=dev) for x in (
+        ptab, db, np.arange(n + 1, dtype=np.int32).reshape(-1, 1), ids,
+        neg)]
+    res = kc.verify_agreement(ck.ptable_verify(*args, 0.45 * l, n),
+                              ck.ptable_verify_plain(*args, 0.45 * l, n))
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_lsh_search_on_cuda_matches_cpu():
+    """The LSH search on the card (through the verify kernel) equals the
+    same search on the CPU, given equal tables and query codes."""
+    from hsearch_tpu_torch.search import motif as tm
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    fam = rng.integers(0, 20, (400, 25))
+    db = fam[rng.integers(0, 400, 20000)]
+    db = np.where(rng.random(db.shape) < 0.08,
+                  rng.integers(0, 20, db.shape), db).astype(np.int32)
+    centers = db[:64]
+    cfg = tm.MotifSearchConfig(hash_k=8, hash_l=4, w=60.0, radius=20.0,
+                               probes=4, center_block=32)
+    cpu = tm.build_index(db, torch.Generator().manual_seed(0), cfg,
+                         device="cpu")
+    gpu = tm.build_index(db, torch.Generator().manual_seed(0), cfg,
+                         device=dev)
+    assert torch.equal(gpu.tables.perm.cpu(), cpu.tables.perm)
+    assert torch.equal(
+        tm._query_codes(gpu, torch.as_tensor(centers, device=dev), True,
+                        4).cpu(),
+        tm._query_codes(cpu, torch.as_tensor(centers), True, 4))
+    ck.reset_launches()
+    got = tm.search(gpu, centers, cfg)
+    assert ck.launch_counts()["ptable_verify"] == 2
+    want = tm.search(cpu, centers, cfg)
+    assert set(zip(got[0].tolist(), got[1].tolist())) == \
+        set(zip(want[0].tolist(), want[1].tolist()))
+    assert len(got[0]) > 64
 
 
 _SQRT_CHECK = r"""
