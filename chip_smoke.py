@@ -1,7 +1,7 @@
 """GPU smoke run of hsearch_tpu_torch: kernels, IVF and LSH search,
-exactness, k-mer clustering, CLI.
+exactness, k-mer clustering, the segmented (stream) engine, CLI.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--stream-n-log2 24] [--trace-out PATH]
 
 Needs one CUDA device (exits non-zero without one) and ``nvcc`` for the
 kernels, which it builds from ``hsearch_tpu_torch/csrc`` into
@@ -43,15 +43,35 @@ Phases, each of which fails the run on error:
      same-family pair recall and the invariants (every row once, sampled
      members within R of their head); the merge's index build timed
      alone and a profile of its search over 4096 heads;
-     cluster_centroid (K=16 L=8) on a 2^18 prefix.
+     cluster_centroid (K=16 L=8) on a 2^18 prefix;
+  8. the segmented engine (search/stream.py) on a 2^24-row database of
+     the same family shape (generated on the card in chunks; R = 35,
+     1024 family-center queries, center blocks of 1024, max_hits 512)
+     in 4 segments of 2^22 points: per-segment build seconds, host and
+     device bytes; prune and verify at a segment's shape against their
+     plain versions, with their times; exactness fully streamed with the
+     retry on (== the exact oracle over all rows, d^2 agreeing); the kb
+     ladder, retry off, doubling from 128 until weighted recall >= 0.99
+     (its last rung, kb = a segment's block count, is lossless); identical
+     hits at
+     residency 0, 1/2 and 1 with ms per call, per-segment search walls,
+     upload dispatch and h2d ms (CUDA events on the copy stream); a
+     profiler trace of one fully streamed call (device busy, idle share,
+     h2d time overlapped by kernels); segivf save and load; Lloyd
+     refinement (kmeans_iters=2) on phase 3's database beside the sampled
+     build; the CLI (motif-search --engine stream == motif-search-exact,
+     index-build --engine stream + serve == motif-search --engine stream).
+     ``--stream-n-log2 27`` runs it at 2^27 rows (32 segments of 2^22,
+     built from an iterator of 2^22-row chunks) instead.
 
-Output: free-form progress lines; ``kernels``, ``main_path``, ``lsh``
-and ``cluster`` lines; the nvidia-smi name/power line; one JSON object
-``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+Output: free-form progress lines; ``kernels``, ``main_path``, ``lsh``,
+``cluster`` and ``stream`` lines; the nvidia-smi name/power line; one JSON
+object ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -79,6 +99,14 @@ LSH_C, LSH_RECALL_GATE = 256, 0.98
 # phase 7: cluster_centroid runs on a prefix of this size; the merge's
 # search is profiled over this many heads
 CENTROID_N_LOG2, MERGE_PROFILE_C = 18, 4096
+# phase 8: database rows, the largest segment (a quarter of the rows below
+# it), centers, and the rows from which the chunks feed the build as an
+# iterator; the kb ladder doubles from its first rung until weighted
+# recall >= 0.99 (on this data it passes phase 3's 512; see PERF.md); rows
+# of the CLI's k-mer file and its queries
+STREAM_N_LOG2, SEG_LOG2, STREAM_C, STREAM_ITER_N_LOG2 = 24, 22, 1024, 25
+STREAM_KB0 = 128
+STREAM_CLI_N_LOG2, STREAM_CLI_Q = 16, 8
 
 
 def protein_like_db(rng, n, l, family_size=64, query_n=256,
@@ -183,10 +211,11 @@ def lsh_configs():
 
 def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
         exact_n_log2=EXACT_N_LOG2, centroid_n_log2=CENTROID_N_LOG2,
-        cli=True):
+        cli=True, stream_n_log2=STREAM_N_LOG2, stream_c=STREAM_C,
+        trace_out=None):
     """All phases on ``device``; returns the kernel records and the
-    records of the IVF, LSH and clustering phases.  Raises on the first
-    failed check."""
+    records of the IVF, LSH, clustering and segmented-engine phases.
+    Raises on the first failed check."""
     import torch
     from hsearch_tpu_torch import _device
     from hsearch_tpu_torch.core import embedding
@@ -447,10 +476,17 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     cluster, by_path["hclust2_merge"] = run_cluster(db, fam, dev,
                                                     centroid_n_log2)
 
+    # ---- phase 8: the segmented engine ----------------------------------
+    stream, by_path["stream_search"], seg_kernels = run_stream(
+        dev, stream_n_log2, stream_c, cli, trace_out,
+        lloyd=(db, centers, (gci, gki, gd), c_blk, main_path))
+    prune_seg, verify_seg = seg_kernels
+
     if dev.type == "cuda":
         need = {"ivf_search": ("sq_distance_prune", "ptable_verify"),
                 "lsh_search": ("ptable_verify",),
-                "hclust2_merge": ("sq_distance_prune", "ptable_verify")}
+                "hclust2_merge": ("sq_distance_prune", "ptable_verify"),
+                "stream_search": ("sq_distance_prune", "ptable_verify")}
         for path, names in need.items():
             if min(by_path[path][n] for n in names) <= 0:
                 raise AssertionError(f"a kernel of the {path} path was not "
@@ -463,7 +499,8 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
          "launches_by_path": {k: v["sq_distance_prune"]
                               for k, v in by_path.items()},
          "max_abs_err": max(prune_bench["max_abs_err"],
-                            prune_small["max_abs_err"]),
+                            prune_small["max_abs_err"],
+                            prune_seg["max_abs_err"]),
          "ms": prune_ms, "plain_ms": prune_plain_ms,
          "bound_ms": prune_bound, "bound_by": prune_by,
          "bound_basis": "3xTF32 on the tensor cores, 3*2*C*B*D at 495 "
@@ -471,7 +508,8 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
          "bound_f32_simt_ms": prune_simt,
          "library_ms": cdist_ms,
          "library_call": "torch.cdist (the distance part alone)",
-         "shape": [cq, bq, dq]},
+         "shape": [cq, bq, dq],
+         "stream_segment": prune_seg},
         {"name": "ptable_verify", "route": "cuda",
          "source": "hsearch_tpu_torch/csrc/ptable_verify.cu",
          "replaces": "hsearch_tpu/ops/pallas_kernels.py:145",
@@ -483,10 +521,11 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                             verify_small16["max_abs_err"],
                             verify_lsh["max_abs_err"],
                             verify_lsh_dup["max_abs_err"],
-                            verify_lsh_small["max_abs_err"]),
+                            verify_lsh_small["max_abs_err"],
+                            verify_seg["max_abs_err"]),
          "bitwise": all(v["bitwise"] for v in (
              verify_bench, verify_small, verify_small16, verify_lsh,
-             verify_lsh_dup, verify_lsh_small)),
+             verify_lsh_dup, verify_lsh_small)) and verify_seg["bitwise"],
          "ms": verify_ms, "plain_ms": verify_plain_ms,
          "bound_ms": verify_bnd, "bound_by": verify_by,
          "distinct_blocks": n_distinct,
@@ -495,9 +534,10 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
          "shape": [cq, kbv, bsv, L],
          "lsh_bs1": {"shape": lsh_shape, "ms": lsh_ms,
                      "plain_ms": lsh_plain_ms, "bound_ms": lsh_bnd,
-                     "bound_by": lsh_by, "distinct_ids": lsh_distinct}},
+                     "bound_by": lsh_by, "distinct_ids": lsh_distinct},
+         "stream_segment": verify_seg},
     ]
-    return kernels, main_path, lsh, cluster
+    return kernels, main_path, lsh, cluster, stream
 
 
 def run_lsh(db, centers, truth, dev):
@@ -671,6 +711,470 @@ def run_cluster(db, fam, dev, centroid_n_log2):
     return rec, launches
 
 
+def family_chunks(n, l, dev, seed=8, chunk=1 << SEG_LOG2, family_size=64):
+    """protein_like_db's family shape, drawn on ``dev`` in chunks: family
+    centers (n / family_size, l), each row a random family's center with
+    Poisson(2) substitutions.  Returns (family centers (F, l) int32 numpy,
+    a generator of (rows (m, l) int8 numpy, family id (m,)) chunks)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nfam = max(1, n // family_size)
+    fam = torch.randint(0, 20, (nfam, l), generator=g, device=dev,
+                        dtype=torch.int8)
+
+    def chunks():
+        for lo in range(0, n, chunk):
+            m = min(chunk, n - lo)
+            which = torch.randint(0, nfam, (m,), generator=g, device=dev)
+            flips = torch.poisson(torch.full((m,), 2.0, device=dev),
+                                  generator=g)
+            ranks = torch.argsort(torch.rand((m, l), generator=g,
+                                             device=dev), dim=1)
+            sub = torch.randint(0, 20, (m, l), generator=g, device=dev,
+                                dtype=torch.int8)
+            rows = torch.where(ranks < flips[:, None], sub, fam[which])
+            yield rows.cpu().numpy(), which.cpu().numpy()
+
+    return fam.cpu().numpy().astype(np.int32), chunks
+
+
+def _pairs(ci, ki):
+    return set(zip(ci.tolist(), ki.tolist()))
+
+
+def _d2_agree(got, truth):
+    """Hit sets equal and d^2 within f32 summation noise (1e-5 relative,
+    the ROADMAP's rule); returns the worst relative d^2 difference."""
+    (ci, ki, dd), (tci, tki, tdd) = got, truth
+    if _pairs(ci, ki) != _pairs(tci, tki):
+        raise AssertionError(f"hit sets differ: {len(ci)} vs {len(tci)} "
+                             f"hits, {len(_pairs(ci, ki) ^ _pairs(tci, tki))}"
+                             " pairs in one only")
+    t = dict(zip(zip(tci.tolist(), tki.tolist()),
+                 (tdd.astype(np.float64) ** 2).tolist()))
+    d2 = dd.astype(np.float64) ** 2
+    worst = max((abs(d2[i] - t[p]) / max(t[p], 1.0)
+                 for i, p in enumerate(zip(ci.tolist(), ki.tolist()))),
+                default=0.0)
+    if worst > 1e-5:
+        raise AssertionError(f"d^2 differs from the oracle's by {worst}")
+    return worst
+
+
+def _intervals_union(iv):
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(iv):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def profile_stream(fn, dev, trace_out=None):
+    """One call under torch.profiler: wall, device busy (union of every
+    kernel, copy and memset interval), idle share, and how much of the
+    host-to-device copy time lies under kernels running at the same time.
+    A measurement aid: a profiler failure is reported, not raised."""
+    import torch
+    if dev.type != "cuda":
+        return {"profile": "not measured (no CUDA device)"}
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        with tempfile.TemporaryDirectory() as tmp:
+            path = trace_out or os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        dev_ev = [e for e in events if e.get("ph") == "X" and e.get("cat")
+                  in ("kernel", "gpu_memcpy", "gpu_memset")]
+        kern = [(e["ts"], e["ts"] + e["dur"]) for e in dev_ev
+                if e["cat"] == "kernel"]
+        h2d = [(e["ts"], e["ts"] + e["dur"]) for e in dev_ev
+               if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
+        busy = _intervals_union([(e["ts"], e["ts"] + e["dur"])
+                                 for e in dev_ev])
+        h2d_total = sum(b - a for a, b in h2d)
+        # the part of each copy that some kernel covers
+        under = sum(_intervals_union([(max(a, ka), min(b, kb_))
+                                      for ka, kb_ in kern
+                                      if ka < b and kb_ > a])
+                    for a, b in h2d)
+        names = {}
+        for e in dev_ev:
+            names[e["name"][:60]] = names.get(e["name"][:60], 0.0) + e["dur"]
+        top = sorted(names.items(), key=lambda x: -x[1])[:8]
+        return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+                "idle_share": max(0.0, 1 - busy / wall_us),
+                "h2d_copies": len(h2d), "h2d_ms": h2d_total / 1e3,
+                "h2d_under_kernels_ms": under / 1e3,
+                "h2d_overlaps_kernels": under > 0.5 * h2d_total > 0,
+                "top_device_ms": {k: v / 1e3 for k, v in top}}
+    except Exception as e:   # measurement aid only: report, keep running
+        return {"profile": f"not measured: {type(e).__name__}: {e}"}
+
+
+def run_stream(dev, n_log2, n_centers, cli, trace_out, lloyd):
+    """Phase 8: the segmented engine.  Returns its record, the kernel
+    launches of its searches, and the prune/verify records at a segment's
+    shape.  ``lloyd`` carries phase 3's database, centers, oracle, center
+    block and record for the Lloyd-refinement check."""
+    import torch
+    from hsearch_tpu_torch.core import embedding
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+    from hsearch_tpu_torch.search import evaluate, exact, ivf, stream
+    from hsearch_tpu_torch.search.motif import _center_ptables
+    from hsearch_tpu_torch.utils import checkpoint
+    n = 1 << n_log2
+    seg_pts = 1 << min(SEG_LOG2, n_log2 - 2)
+    rec: dict = {"n": n, "segment_points": seg_pts, "centers": n_centers}
+
+    # data: family rows drawn on the device; queries are family centers
+    t0 = time.perf_counter()
+    fam, chunks = family_chunks(n, L, dev, chunk=seg_pts)
+    qidx = np.random.default_rng(9).choice(len(fam), n_centers,
+                                           replace=False)
+    centers = fam[qidx]
+    streamed_input = n_log2 >= STREAM_ITER_N_LOG2
+    if streamed_input:
+        db = None                       # built from the chunk iterator
+    else:
+        db = np.concatenate([c for c, _ in chunks()])
+        rec["gen_s"] = time.perf_counter() - t0
+
+    # build, timed per segment
+    marks = [time.perf_counter()]
+    sidx = stream.build_segmented(
+        (c for c, _ in chunks()) if streamed_input else db,
+        torch.Generator().manual_seed(8), segment_points=seg_pts,
+        block_size=32, device=dev,
+        progress=lambda i, off: marks.append(time.perf_counter()))
+    rec["build_s"] = marks[-1] - marks[0]
+    rec["build_s_per_segment"] = [float(x) for x in np.diff(marks)]
+    rec["segments"] = sidx.num_segments
+    rec["blocks_per_segment"] = [s.db_sorted.shape[0] for s in sidx.segments]
+    rec["host_bytes"] = sum(s.nbytes for s in sidx.segments)
+    rec["segment_device_bytes"] = [stream.segment_device_bytes(s)
+                                   for s in sidx.segments]
+    rec["pinned"] = all(s.pinned is not None and s.pinned[0].is_pinned()
+                        for s in sidx.segments) if dev.type == "cuda" \
+        else None
+    print(f"phase8 built {sidx.num_segments} segments of {seg_pts} in "
+          f"{rec['build_s']:.3f} s "
+          f"({[round(x, 3) for x in rec['build_s_per_segment']]}), host bytes {rec['host_bytes']}, device bytes per segment "
+          f"{rec['segment_device_bytes']}", flush=True)
+
+    # the exact oracle over every row, as the union of per-segment oracles
+    # (radius search decomposes over the partition)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as wlog:
+        warnings.simplefilter("always")
+        parts = [exact.search_radius(s.host_kmers, centers, RADIUS,
+                                     center_block=n_centers,
+                                     max_hits=4 * MAX_HITS, device=dev)
+                 for s in sidx.segments]
+    truth = (np.concatenate([p[0] for p in parts]),
+             np.concatenate([p[1] + s.offset
+                             for p, s in zip(parts, sidx.segments)]),
+             np.concatenate([p[2] for p in parts]))
+    rec["oracle_s"] = time.perf_counter() - t0
+    rec["truth_hits"] = int(len(truth[0]))
+    if any("max_hits" in str(w.message) for w in wlog):
+        raise AssertionError("the phase 8 oracle truncated a center")
+    print(f"phase8 oracle {rec['oracle_s']:.3f} s, {len(truth[0])} hits",
+          flush=True)
+
+    # prune and verify at a segment's shape, against their plain versions
+    seg0 = stream.upload_segment(sidx.segments[0], dev)
+    cb = min(n_centers, 1024)
+    q_emb = torch.as_tensor(embedding.embed_kmers(centers[:cb]), device=dev)
+    r = float(np.float32(RADIUS))
+    cent, rad = seg0.block_centroid, seg0.block_radius
+    prune_res = check_prune(ck, q_emb, cent, rad, r)
+    key, gmin, _ = ck.sq_distance_prune(q_emb, cent, rad, r)
+    kb0 = min(STREAM_KB0, seg0.num_blocks)
+    neg, blk = ivf._cascade_top_blocks(key, gmin, kb0)
+    del key, gmin
+    ptab = _center_ptables(torch.as_tensor(centers[:cb], device=dev), L)
+    vargs = (ptab, seg0.db_sorted, seg0.order, blk, neg,
+             float(np.float32(r) * np.float32(r)), seg0.n_points)
+    verify_res = check_verify(ck, *vargs)
+    print(f"phase8 prune at segment shape {tuple(q_emb.shape)}x"
+          f"{tuple(cent.shape)}: {prune_res}", flush=True)
+    print(f"phase8 verify at segment shape C={cb} kb={kb0}: {verify_res}",
+          flush=True)
+    for name, res in (("prune", prune_res), ("verify", verify_res)):
+        if not res["ok"]:
+            raise AssertionError(f"{name} at the segment shape disagrees "
+                                 f"with its plain version: {res}")
+    bq, dq = seg0.num_blocks, q_emb.shape[1]
+    bp = -(-bq // ck.PRUNE_GROUP) * ck.PRUNE_GROUP
+    prune_bound, prune_by = _bound_ms(
+        3 * 2.0 * cb * bq * dq,
+        4.0 * (cb * dq + bq * dq + bq + cb * bp + cb * bp // ck.PRUNE_GROUP
+               + cb), PEAK_TF32_FLOPS)
+    prune_seg = {"shape": [cb, bq, dq], "max_abs_err": prune_res[
+                     "max_abs_err"], "mask_flips": prune_res["mask_flips"],
+                 "ms": _time_ms(lambda: ck.sq_distance_prune(
+                     q_emb, cent, rad, r), dev),
+                 "plain_ms": _time_ms(lambda: ck.sq_distance_prune_plain(
+                     q_emb, cent, rad, r), dev, reps=3),
+                 "bound_ms": prune_bound, "bound_by": prune_by,
+                 "library_ms": _time_ms(lambda: torch.cdist(q_emb, cent),
+                                        dev, reps=3)}
+    alive = torch.isfinite(neg)
+    verify_bnd, verify_by = verify_bound(
+        int(torch.unique(blk[alive]).numel()), 32 * L, cb, kb0, 32,
+        int(alive.sum()))
+    verify_seg = {"shape": [cb, kb0, 32, L],
+                  "max_abs_err": verify_res["max_abs_err"],
+                  "bitwise": verify_res["bitwise"],
+                  "ms": _time_ms(lambda: ck.ptable_verify(*vargs), dev),
+                  "plain_ms": _time_ms(lambda: ck.ptable_verify_plain(
+                      *vargs), dev, reps=3),
+                  "bound_ms": verify_bnd, "bound_by": verify_by,
+                  "library_ms": None}
+    print(f"phase8 kernels at segment shape: prune {prune_seg}, verify "
+          f"{verify_seg}", flush=True)
+    del seg0, q_emb, cent, rad, neg, blk, ptab, vargs, alive
+
+    def cb_for(kb):
+        """A center block that keeps the (C, kb*bs) verify output near
+        1 GB."""
+        return max(1, min(cb, (1 << 28) // (kb * 32)))
+
+    ck.reset_launches()
+    # exactness: fully streamed, retry on.  On this dense data most blocks
+    # of a segment survive the prune for every center, so the retry
+    # ladder would end at kb = B for each center alone; the search starts
+    # there instead
+    stream.set_residency(sidx, 0)
+    b_max = max(rec["blocks_per_segment"])
+    st: dict = {}
+    t0 = time.perf_counter()
+    got = stream.search_segmented(
+        sidx, centers, RADIUS, k_blocks=b_max, retry_overflow=True,
+        stats_out=st, max_hits=MAX_HITS, pack_cap_frac=4,
+        center_block=cb_for(b_max))
+    rec["exact_s"] = time.perf_counter() - t0
+    rec["exact_max_d2_rel_err"] = _d2_agree(got, truth)
+    rec["exact_stats"] = {k: st[k] for k in ("retried", "max_alive",
+                                             "over_blocks", "over_hits")}
+    print(f"phase8 exact, fully streamed, retry on: {len(got[0])} hits == "
+          f"oracle in {rec['exact_s']:.3f} s, stats {rec['exact_stats']}",
+          flush=True)
+
+    # the kb ladder, retry off, doubling until weighted recall >= 0.99;
+    # at kb = b_max it is lossless
+    ladder, kb = {}, STREAM_KB0
+    while True:
+        kb = min(kb, b_max)
+        st = {}
+        ci, ki, _ = stream.search_segmented(
+            sidx, centers, RADIUS, k_blocks=kb, retry_overflow=False,
+            stats_out=st, max_hits=MAX_HITS, pack_cap_frac=4,
+            center_block=cb_for(kb))
+        rep = evaluate.recall_from_indices(*truth, ci, ki, RADIUS)
+        ladder[kb] = rep.recall
+        print(f"phase8 kb={kb} recall={rep.recall:.6f} over_blocks="
+              f"{st['over_blocks']} max_alive={st['max_alive']}",
+              flush=True)
+        if rep.recall >= 0.99 or kb == b_max:
+            break
+        kb *= 2
+    rec["recall_ladder"] = ladder
+    rec["kb"], rec["recall"] = kb, ladder[kb]
+    if ladder[kb] < 0.99:
+        raise AssertionError(f"phase 8 weighted recall {ladder[kb]} < 0.99 "
+                             f"at kb = {kb}, every block of a segment")
+    kw = dict(max_hits=MAX_HITS, center_block=cb_for(kb), pack_cap_frac=4)
+
+    # residency 0, 1/2 and 1 at the chosen kb: identical hits
+    ns = sidx.num_segments
+    res_rec, ref = {}, None
+    for k in (0, ns // 2, ns):
+        budget = sum(stream.segment_device_bytes(s)
+                     for s in sidx.segments[:k])
+        stream.set_residency(sidx, budget)
+        if sum(r_ is not None for r_ in sidx.resident) != k:
+            raise AssertionError(f"set_residency kept "
+                                 f"{sidx.resident_fraction()} resident, "
+                                 f"asked {k}/{ns}")
+        calls, last, events = [], None, []
+        for _ in range(3):
+            st, events = {}, []
+            _sync(dev)
+            t0 = time.perf_counter()
+            last = stream.search_segmented(sidx, centers, RADIUS,
+                                           k_blocks=kb, retry_overflow=False,
+                                           stats_out=st, h2d_events=events,
+                                           **kw)
+            calls.append((time.perf_counter() - t0) * 1e3)
+        _sync(dev)
+        pairs = _pairs(last[0], last[1])
+        if ref is None:
+            ref = pairs
+        elif pairs != ref:
+            raise AssertionError(f"residency {k}/{ns} changed the hits: "
+                                 f"{len(pairs ^ ref)} pairs differ")
+        h2d = {i: s_.elapsed_time(e_) for i, s_, e_ in events}
+        res_rec[f"{k}/{ns}"] = {
+            "resident_fraction": sidx.resident_fraction(),
+            "ms_per_call": calls, "seg_walls_s": st["seg_walls_s"],
+            "upload_dispatch_s": st["upload_dispatch_s"],
+            "h2d_ms": [h2d.get(i) for i in range(ns)],
+            "h2d_gb_per_s": [sidx.segments[i].nbytes / (h2d[i] * 1e6)
+                             if h2d.get(i) else None for i in range(ns)],
+            "hits": len(last[0])}
+        print(f"phase8 residency {k}/{ns}: {json.dumps(res_rec[f'{k}/{ns}'])}",
+              flush=True)
+        if k == 0:
+            rec["profile_streamed"] = profile_stream(
+                lambda: stream.search_segmented(
+                    sidx, centers, RADIUS, k_blocks=kb,
+                    retry_overflow=False, **kw), dev, trace_out)
+            print(f"phase8 profile of one fully streamed call: "
+                  f"{json.dumps(rec['profile_streamed'])}", flush=True)
+    rec["residency"] = res_rec
+    launches = ck.launch_counts()
+    print(f"phase8 launches {launches}", flush=True)
+
+    # checkpoint: segivf save and load with a budget
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "seg.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_index(path, sidx)
+        rec["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = checkpoint.load_index(
+            path, device_budget_bytes=stream.segment_device_bytes(
+                sidx.segments[0]) * (ns // 2), device=dev)
+        rec["load_s"] = time.perf_counter() - t0
+        rec["checkpoint_bytes"] = os.path.getsize(path)
+    again = stream.search_segmented(back, centers, RADIUS, k_blocks=kb,
+                                    retry_overflow=False, **kw)
+    if _pairs(again[0], again[1]) != ref:
+        raise AssertionError("the reloaded segivf index changed the hits")
+    print(f"phase8 checkpoint: save {rec['save_s']:.3f} s, load "
+          f"{rec['load_s']:.3f} s ({rec['checkpoint_bytes']} bytes, "
+          f"resident {back.resident_fraction():.2f}), same hits", flush=True)
+    del back, again
+    stream.set_residency(sidx, 0)
+
+    # Lloyd refinement on phase 3's database, beside the sampled build
+    db3, cen3, truth3, c_blk3, main3 = lloyd
+    t0 = time.perf_counter()
+    kidx = ivf.build_index(db3, torch.Generator().manual_seed(0),
+                           block_size=32, kmeans_iters=2, device=dev)
+    _sync(dev)
+    rec["lloyd_build_s"] = time.perf_counter() - t0
+    rec["sampled_build_s"] = main3["build_s"]
+    ci, ki, _ = ivf.search(kidx, cen3, RADIUS, k_blocks=128,
+                           max_hits=MAX_HITS, center_block=c_blk3,
+                           retry_overflow=False, stats_out={})
+    rec["lloyd_recall_kb128"] = evaluate.recall_from_indices(
+        *truth3, ci, ki, RADIUS).recall
+    rec["sampled_recall_kb128"] = main3["recall"] if main3["kb"] == 128 \
+        else None
+    c64 = cen3[:EXACT_C]
+    sel = truth3[0] < EXACT_C
+    rec["lloyd_exact_max_d2_rel_err"] = _d2_agree(
+        ivf.search(kidx, c64, RADIUS, k_blocks=128, max_hits=4 * MAX_HITS,
+                   center_block=EXACT_C, retry_overflow=True),
+        tuple(x[sel] for x in truth3))
+    print(f"phase8 lloyd (kmeans_iters=2) on phase 3's database: build "
+          f"{rec['lloyd_build_s']:.3f} s (sampled {main3['build_s']:.3f} s),"
+          f" recall at kb=128 {rec['lloyd_recall_kb128']:.6f} (sampled "
+          f"{rec['sampled_recall_kb128']}), exact on {EXACT_C} centers",
+          flush=True)
+    del kidx
+
+    if cli:
+        # the CLI's k-mer file: the true hits of its queries, then filler
+        want = truth[1][truth[0] < STREAM_CLI_Q]
+        if db is None:
+            db = np.concatenate([s.host_kmers for s in sidx.segments])
+        m = min(n, 1 << STREAM_CLI_N_LOG2)
+        fill = np.setdiff1d(np.arange(m), want)
+        rows = np.concatenate([want, fill])[:m]
+        rec["cli"] = run_stream_cli(db[rows], centers[:STREAM_CLI_Q], dev,
+                                    m // 4)
+    return rec, launches, (prune_seg, verify_seg)
+
+
+def _write_kmers_fasta(path, prefix, rows):
+    aa = "ARNDCQEGHILKMFPSTWYV"
+    with open(path, "w") as f:
+        for i, r in enumerate(rows):
+            f.write(f">{prefix}{i}\n{''.join(aa[x] for x in r)}\n")
+
+
+def run_stream_cli(db, centers, dev, seg_pts):
+    """The tools, called in this process as the command line calls them:
+    motif-search --engine stream == motif-search-exact; index-build
+    --engine stream, then serve of the centers == motif-search --engine
+    stream."""
+    import contextlib
+    import io
+    from hsearch_tpu_torch import cli
+    aa = "ARNDCQEGHILKMFPSTWYV"
+    with tempfile.TemporaryDirectory() as tmp:
+        dbf, cf = (os.path.join(tmp, x) for x in ("db.fasta", "c.fasta"))
+        _write_kmers_fasta(dbf, "db", db)
+        _write_kmers_fasta(cf, "c", centers)
+        qf = os.path.join(tmp, "q.txt")
+        seqs = ["".join(aa[x] for x in c) for c in centers]
+        with open(qf, "w") as f:
+            f.write("\n".join(seqs) + "\n")
+        common = ["-l", str(L), "--device", dev.type]
+        outs = {}
+        for tool, extra in (("motif-search-exact", []),
+                            ("motif-search", ["--engine", "stream",
+                                              "--segment-points",
+                                              str(seg_pts)])):
+            out = os.path.join(tmp, f"{tool}.txt")
+            cli.main([tool, "-d", dbf, "-c", cf, "-T", str(RADIUS), "-o",
+                      out, *common, *extra])
+            with open(out) as f:
+                outs[tool] = {(a, b): float(d)
+                              for a, b, d in (ln.split() for ln in f)}
+        idx = os.path.join(tmp, "idx.npz")
+        cli.main(["index-build", "-d", dbf, "-o", idx, "--engine", "stream",
+                  "--segment-points", str(seg_pts), *common])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["serve", "-i", idx, "--input", qf, "-T", str(RADIUS),
+                      "--device", dev.type])
+        served = buf.getvalue()
+    exact_t, stream_t = outs["motif-search-exact"], outs["motif-search"]
+    if set(exact_t) != set(stream_t) or len(exact_t) < len(centers):
+        raise AssertionError(f"CLI stream ({len(stream_t)} triples) != "
+                             f"exact ({len(exact_t)} triples)")
+    worst = max(abs(exact_t[k] - stream_t[k]) for k in exact_t)
+    if worst > 1e-3:
+        raise AssertionError(f"CLI stream distances differ by up to {worst}")
+    by_seq = {s: f"c{i}" for i, s in enumerate(seqs)}
+    serve_t = {(by_seq[q], f"db{k}"): float(d) for q, k, d in
+               (ln.split() for ln in served.splitlines() if ln)}
+    if set(serve_t) != set(stream_t):
+        raise AssertionError(f"serve ({len(serve_t)} hits) != motif-search "
+                             f"--engine stream ({len(stream_t)} triples)")
+    print(f"phase8 CLI: motif-search --engine stream == motif-search-exact "
+          f"({len(exact_t)} triples over {len(db)} k-mers in segments of "
+          f"{seg_pts}, max |dist diff| {worst:.2e}); index-build --engine "
+          f"stream + serve == motif-search --engine stream", flush=True)
+    return {"rows": len(db), "queries": len(centers),
+            "segment_points": seg_pts, "triples": len(exact_t),
+            "max_dist_diff": worst}
+
+
 def profile_call(label, fn, dev):
     """Device time by kernel and the device's idle share over one call
     (torch.profiler); a measurement aid, so a profiler failure is
@@ -765,7 +1269,15 @@ def run_cli(db, centers, dev):
           f"clusters over {n_members} rows", flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--stream-n-log2", type=int, default=STREAM_N_LOG2,
+                    help="phase 8's database rows, log2 (segments of "
+                         f"2^{SEG_LOG2})")
+    ap.add_argument("--trace-out", default=None,
+                    help="also write phase 8's profiler trace (Chrome "
+                         "JSON) to this path")
+    args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     import torch
     if not torch.cuda.is_available():
@@ -781,11 +1293,13 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
           f" x{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    kernels, main_path, lsh, cluster = run("cuda")
+    kernels, main_path, lsh, cluster, stream = run(
+        "cuda", stream_n_log2=args.stream_n_log2, trace_out=args.trace_out)
     print("kernels " + json.dumps(kernels))
     print("main_path " + json.dumps(main_path))
     print("lsh " + json.dumps(lsh))
     print("cluster " + json.dumps(cluster))
+    print("stream " + json.dumps(stream))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))

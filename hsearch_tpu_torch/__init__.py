@@ -4,19 +4,24 @@ Each module keeps the name and place of its counterpart in ``hsearch_tpu``
 (the JAX package, which stays the reference the port is tested against):
 
   core/        alphabet, BLOSUM62, metric embedding, FASTA/datapoints/
-               cluster-file IO
+               cluster-file IO, corpus preparation (k-mer sampling,
+               unique k-mers), ORF translation, Pfam STOCKHOLM centers
   ops/         distances, packed hit transfer, sorted-code hash tables,
                hand-written CUDA kernels (csrc/*.cu, built with nvcc at
                first use)
   lsh/         p-stable LSH and its operating-point sweep
-  search/      exact oracle, block-pruned IVF engine, LSH motif search,
-               recall evaluation
+  search/      exact oracle, block-pruned IVF engine (with optional Lloyd
+               refinement), the segmented engine for databases larger than
+               the card's memory, LSH motif search, recall evaluation
   cluster/     greedy (hclust2/3) and centroid (hclust) k-mer clustering,
                the center-distance merge, post-processing, union-find
-  utils/       index checkpointing (the ``ivf`` and ``motif`` .npz kinds)
-  cli          ``python -m hsearch_tpu_torch <tool>``: motif-search,
-               motif-search-exact, lsh-sweep, hclust2/3, hclust,
-               postprocess
+  utils/       index checkpointing (the ``ivf``, ``motif`` and ``segivf``
+               .npz kinds) and index statistics
+  cli          ``python -m hsearch_tpu_torch <tool>``: protein2datapoints,
+               motif-search, motif-search-exact, index-build, serve,
+               lsh-sweep, hclust2/3, hclust, postprocess, evaluate2,
+               evaluate-motifs, shuffle-kmers, kmer2coordinates,
+               gen-kmers, orf, stockholm
 
 The port imports torch and numpy only — never jax, never hsearch_tpu.
 Every entry point takes ``device`` (default ``"cuda"``) and raises when

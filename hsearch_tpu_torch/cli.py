@@ -2,19 +2,31 @@
 
     python -m hsearch_tpu_torch <tool> [args]
 
-    motif-search         --engine lsh | ivf | exact (stream: not yet ported)
+    protein2datapoints   sampled k-mer datapoints of a protein FASTA
+    motif-search         --engine lsh | ivf | exact | stream
     motif-search-exact   brute-force exact search
+    index-build          build an ivf, lsh or segmented (stream) index once
+    serve                answer queries line by line from a saved index
     lsh-sweep            LSH operating-point sweep against the exact oracle
     hclust2 / hclust3    greedy k-mer clustering (one implementation), with
                          the optional center-distance merge
     hclust               centroid-merging k-mer clustering
     postprocess          cluster centers, MEME file, center distances
+    evaluate2            weighted recall of result files against a truth
+    evaluate-motifs      MEME-vs-search motif protein-set comparison
+    shuffle-kmers        labeled, shuffled benchmark FASTA from clusters
+    kmer2coordinates     embedded points of a k-mer file
+    gen-kmers            distinct k-mers of a corpus with their counts
+    orf                  six-frame ORF translation of DNA
+    stockholm            motif centers from a Pfam STOCKHOLM file
 
 Flags, defaults and output files are those of the JAX package's tools:
 triples ``center kmer dist`` (``{d:g}``), and with ``-g`` an ``ACCURACY``
 line plus ``<out>.accuracy.txt``; cluster files with ``#clusterid`` or
-``#cluster`` headers.  ``--device`` picks the device (default ``cuda``;
-``cpu`` must be asked for); seeds feed a ``torch.Generator``.
+``#cluster`` headers.  ``--device`` picks the device of every tool that
+touches a tensor (default ``cuda``; ``cpu`` must be asked for); seeds feed
+a ``torch.Generator``.  The data-prep and evaluation tools are host-only
+numpy.
 """
 
 from __future__ import annotations
@@ -25,9 +37,9 @@ import sys
 
 import numpy as np
 
-# engines of the JAX package that this package does not run yet, with the
+# tools of the JAX package whose modules are not ported yet, with the
 # ROADMAP item that ports them
-_NOT_PORTED = {"stream": "ROADMAP A.5"}
+_NOT_PORTED = {"pcluster": "ROADMAP A.8", "fit-embedding": "ROADMAP A.9"}
 
 
 def _read_kmer_input(path: str, k: int):
@@ -105,15 +117,72 @@ def _lsh_search(args, dk, centers):
     return motif.search(index, centers, cfg)
 
 
+def _load_stream_index(args, n_db: int):
+    """--index: a saved segmented index, checked against the run before
+    it is loaded: its kind must be segivf, its k-mer length -l and its
+    point count the database's (the rows its hit ids name)."""
+    from .utils import checkpoint
+    kind, meta = checkpoint.peek(args.index)
+    if kind != "segivf":
+        raise SystemExit(f"motif-search: --index {args.index} holds a "
+                         f"{kind!r} index; --engine stream needs a segmented "
+                         "index (kind 'segivf', from --save-index or "
+                         "index-build --engine stream)")
+    if int(meta["kmer_len"]) != args.kmer_len:
+        raise SystemExit(f"motif-search: --index {args.index} was built for "
+                         f"{meta['kmer_len']}-mers, but -l is "
+                         f"{args.kmer_len}")
+    if int(meta["n_points"]) != n_db:
+        raise SystemExit(f"motif-search: --index {args.index} holds "
+                         f"{meta['n_points']} points, but the database -d "
+                         f"has {n_db} k-mers")
+    index = checkpoint.load_index(args.index,
+                                  device_budget_bytes=args.device_budget,
+                                  device=args.device)
+    print(f"[segmented index reloaded: {index.n_points} points, "
+          f"{index.num_segments} segments, resident "
+          f"{index.resident_fraction():.2f}]", file=sys.stderr)
+    return index
+
+
+def _stream_search(args, dk, centers):
+    """The stream engine: segments of --segment-points streamed through
+    the device, a --device-budget prefix kept resident; --index loads a
+    saved segmented index instead of building, --save-index saves the
+    one built."""
+    import torch
+
+    from .search import stream
+    from .utils import checkpoint
+    if args.index:
+        index = _load_stream_index(args, len(dk))
+    else:
+        index = stream.build_segmented(
+            dk, torch.Generator().manual_seed(args.seed),
+            segment_points=args.segment_points, block_size=args.block_size,
+            device_budget_bytes=args.device_budget, device=args.device)
+        if args.save_index:
+            checkpoint.save_index(args.save_index, index)
+            print(f"[segmented index -> {args.save_index}]",
+                  file=sys.stderr)
+    stats: dict = {}
+    ci, ki, dd = stream.search_segmented(
+        index, centers, args.radius, k_blocks=args.k_blocks,
+        max_hits=args.max_hits, center_block=args.center_block,
+        retry_overflow=not args.no_retry, stats_out=stats, pack_cap_frac=4)
+    if args.no_retry and (stats.get("over_blocks")
+                          or stats.get("over_hits")):
+        print(f"[--no-retry: {stats.get('over_blocks', 0)} "
+              f"center-segment pairs over k-blocks, "
+              f"{stats.get('over_hits', 0)} over max-hits]", file=sys.stderr)
+    return ci, ki, dd
+
+
 def cmd_motif_search(args):
     import torch
 
     from .core import io as hio
     from .search import evaluate, exact, ivf
-    if args.engine in _NOT_PORTED:
-        raise SystemExit(f"motif-search: --engine {args.engine} is not yet "
-                         f"ported ({_NOT_PORTED[args.engine]}); use "
-                         "--engine lsh, ivf or exact")
     dnames, dk, _ = _read_kmer_input(args.database, args.kmer_len)
     cnames, ck, cpts = _read_kmer_input(args.centers, args.kmer_len)
     if dk is None:
@@ -126,6 +195,8 @@ def cmd_motif_search(args):
                                          device=args.device)
     elif args.engine == "lsh":
         ci, ki, dd = _lsh_search(args, dk, centers)
+    elif args.engine == "stream":
+        ci, ki, dd = _stream_search(args, dk, centers)
     else:
         index = ivf.build_index(
             dk, torch.Generator().manual_seed(args.seed),
@@ -319,6 +390,233 @@ def cmd_postprocess(args):
           file=sys.stderr)
 
 
+def cmd_protein2datapoints(args):
+    from .core import dataprep, embedding, io as hio
+    rng = np.random.default_rng(args.seed)
+    if args.stream_aa:
+        # bounded memory: chunked read, datapoints written per chunk; the
+        # output is identical to the whole-file path's
+        total = 0
+        with open(args.output, "w") as f:
+            chunks = hio.stream_fasta(args.database, seed=args.seed,
+                                      chunk_aa=args.stream_aa)
+            for headers, kmers in dataprep.stream_kmer_datapoints(
+                    chunks, args.kmer_len, rng):
+                hio.write_datapoints(f, headers,
+                                     embedding.embed_kmers(kmers))
+                total += len(headers)
+    else:
+        db = hio.read_fasta(args.database, seed=args.seed)
+        headers, kmers = dataprep.sample_kmer_datapoints(
+            db, args.kmer_len, rng)
+        hio.write_datapoints(args.output, headers,
+                             embedding.embed_kmers(kmers))
+        total = len(headers)
+    print(f"[WROTE {total} datapoints to {args.output}]", file=sys.stderr)
+
+
+def cmd_evaluate2(args):
+    import os
+
+    from .core import io as hio
+    from .search import evaluate
+    truth = hio.read_triples(args.ground_truth)
+    tp = [(a, b) for a, b, _ in truth]
+    td = [d for _, _, d in truth]
+    if os.path.isdir(args.result):
+        paths = [os.path.join(args.result, p)
+                 for p in sorted(os.listdir(args.result))]
+    else:
+        paths = [args.result]
+    for p in paths:
+        found = [(a, b) for a, b, _ in hio.read_triples(p)]
+        rep = evaluate.weighted_recall(tp, td, found, args.radius,
+                                       weighting=args.weighting)
+        print(f"{p} ACCURACY {rep.recall}")
+
+
+def cmd_evaluate_motifs(args):
+    """MEME-vs-search motif protein-set comparison (evaluate.cpp)."""
+    from .core import io as hio
+    from .search import evaluate
+    with open(args.meme) as f:
+        f.readline()                       # header line (evaluate.cpp:25)
+        meme_pairs = [tuple(parts[:2]) for parts in map(str.split, f)
+                      if len(parts) >= 2]
+    triples = hio.read_triples(args.result)
+    s1, s2, ratio = evaluate.motif_protein_set_ratio(meme_pairs, triples)
+    print(f"ACCURACY: {s1} {s2} {ratio}")
+
+
+def cmd_shuffle_kmers(args):
+    from .cluster import postprocess
+    from .core import io as hio
+    clusters = hio.read_clusters(args.clusters)
+    clusters = [c for c in clusters if len(c) >= args.min_size]
+    named = [(f"cluster{i}", c) for i, c in enumerate(clusters)]
+    rng = np.random.default_rng(args.seed)
+    recs = postprocess.shuffle_motifs(named, rng, args.num_motifs,
+                                      args.seqs_per_motif)
+    with open(args.output, "w") as f:
+        for name, seq in recs:
+            f.write(f">{name}\n{seq}\n")
+    print(f"[{len(recs)} shuffled records -> {args.output}]",
+          file=sys.stderr)
+
+
+def cmd_kmer2coordinates(args):
+    from .core import dataprep, io as hio
+    names, km, _ = _read_kmer_input(args.input, args.kmer_len)
+    if km is None:
+        raise SystemExit("input must be k-mer-typed (FASTA or datapoints "
+                         "with name#idx$off@KMER*count headers)")
+    hio.write_datapoints(args.output, names,
+                         dataprep.kmers_to_coordinates(km))
+    print(f"[{len(names)} points -> {args.output}]", file=sys.stderr)
+
+
+def cmd_gen_kmers(args):
+    from .core import alphabet, dataprep, io as hio
+    # seed=None keeps unknown residues, so unique_kmers drops the windows
+    # that hold them (randomizing first would make k-mers up)
+    if args.stream_aa:
+        kmers, counts = dataprep.stream_unique_kmers(
+            hio.stream_fasta(args.database, seed=None,
+                             chunk_aa=args.stream_aa), args.kmer_len)
+    else:
+        db = hio.read_fasta(args.database, seed=None)
+        kmers, counts = dataprep.unique_kmers(db, args.kmer_len)
+    # decoded in bounded slices: one (U,) string array of every k-mer
+    # would undo --stream-aa's memory bound
+    step = 1 << 20
+    with open(args.output, "w") as f:
+        for s in range(0, len(kmers), step):
+            strs = alphabet.decode_all(kmers[s:s + step])
+            f.writelines(f"{t}\t{c}\n"
+                         for t, c in zip(strs, counts[s:s + step]))
+    print(f"[{len(kmers)} unique {args.kmer_len}-mers -> {args.output}]",
+          file=sys.stderr)
+
+
+def _read_raw_fasta(path: str):
+    """(names up to the first space, sequences as text) of a FASTA file."""
+    names, seqs, cur = [], [], []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            if line.startswith(">"):
+                if names:
+                    seqs.append("".join(cur))
+                cur = []          # also drops text before the first '>'
+                names.append(line[1:].split(" ")[0])
+            elif names:
+                cur.append(line)
+    if names:
+        seqs.append("".join(cur))
+    return names, seqs
+
+
+def cmd_orf(args):
+    from .core import orf
+    names, dnas = _read_raw_fasta(args.query)
+    out_names, peptides = orf.translate_fasta(names, dnas, args.min_len)
+    out = args.output or (args.query + "_translatedAA.fasta")
+    with open(out, "w") as f:
+        for n, pep in zip(out_names, peptides):
+            f.write(f">{n}\n{pep}\n")
+    print(f"[{len(peptides)} peptides -> {out}]", file=sys.stderr)
+
+
+def cmd_stockholm(args):
+    from .core import stockholm
+    centers = stockholm.extract_centers(args.input, args.length,
+                                        sample_every=args.sample_every)
+    with open(args.output, "w") as f:
+        for label, motif_seq in centers:
+            f.write(f">{label}\n{motif_seq}\n")
+    print(f"[{len(centers)} centers -> {args.output}]", file=sys.stderr)
+
+
+def cmd_index_build(args):
+    """Build a search index once and save it."""
+    import json
+
+    import torch
+
+    from .search import ivf, motif, stream
+    from .utils import checkpoint, stats
+    _, dk, _ = _read_kmer_input(args.database, args.kmer_len)
+    if dk is None:
+        raise SystemExit("input must be k-mer-typed (FASTA or datapoints "
+                         "with name#idx$off@KMER*count headers)")
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.engine == "ivf":
+        index = ivf.build_index(dk, gen, block_size=args.block_size,
+                                device=args.device)
+    elif args.engine == "stream":
+        index = stream.build_segmented(
+            dk, gen, segment_points=args.segment_points,
+            block_size=args.block_size, device=args.device)
+    else:
+        cfg = motif.MotifSearchConfig(hash_k=args.hash_k,
+                                      hash_l=args.hash_l, w=args.width)
+        index = motif.build_index(dk, gen, cfg, device=args.device)
+    checkpoint.save_index(args.output, index)
+    print(json.dumps(stats.index_stats(index))[:400], file=sys.stderr)
+    print(f"[index -> {args.output}]", file=sys.stderr)
+
+
+def cmd_serve(args):
+    """Persistent query loop: one process keeps the index on the device
+    and answers motif queries line by line."""
+    from .core import alphabet
+    from .search import ivf, motif, stream
+    from .utils import checkpoint
+    index = checkpoint.load_index(args.index,
+                                  device_budget_bytes=args.device_budget,
+                                  device=args.device)
+    is_ivf = isinstance(index, ivf.IVFIndex)
+    is_seg = isinstance(index, stream.SegmentedIVF)
+    kind = "segmented" if is_seg else ("ivf" if is_ivf else "lsh")
+    n_pts = index.n_points if (is_ivf or is_seg) else index.num_points
+    extra = (f", {index.num_segments} segments, resident "
+             f"{index.resident_fraction():.2f}") if is_seg else ""
+    print(f"[serving {kind} index: {n_pts} points, "
+          f"L={index.kmer_len}{extra}; query = one sequence per line, "
+          "blank to quit]", file=sys.stderr)
+    cfg = None if (is_ivf or is_seg) else \
+        motif.MotifSearchConfig(radius=args.radius, probes=args.probes)
+    fin = open(args.input) if args.input else sys.stdin
+    try:
+        for line in fin:
+            seq = line.strip().upper()
+            if not seq:
+                break
+            if seq.startswith(">"):
+                continue
+            if len(seq) != index.kmer_len:
+                print(f"# query must be length {index.kmer_len}",
+                      file=sys.stderr)
+                continue
+            q = alphabet.encode(seq).astype(np.int32)[None, :]
+            if is_seg:
+                ci, ki, dd = stream.search_segmented(
+                    index, q, args.radius, k_blocks=args.k_blocks)
+            elif is_ivf:
+                ci, ki, dd = ivf.search(index, q, args.radius,
+                                        k_blocks=args.k_blocks)
+            else:
+                ci, ki, dd = motif.search(index, q, cfg)
+            for j in np.argsort(dd):
+                print(f"{seq} {int(ki[j])} {dd[j]:g}")
+            print(f"# {len(ki)} hits", file=sys.stderr)
+    finally:
+        if args.input:
+            fin.close()
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="hsearch_tpu_torch",
                                 description=__doc__.split("\n")[0])
@@ -335,6 +633,16 @@ def build_parser() -> argparse.ArgumentParser:
         q.add_argument("-T", "--radius", type=float, default=200.0)
         q.add_argument("--seed", type=int, default=0)
 
+    q = sub.add_parser("protein2datapoints")
+    q.add_argument("-d", "--database", required=True)
+    q.add_argument("-o", "--output", required=True)
+    q.add_argument("-l", "--kmer-len", type=int, default=25)
+    q.add_argument("--seed", type=int, default=0)
+    q.add_argument("--stream-aa", type=int, default=0, metavar="N",
+                   help="stream the FASTA in ~N-residue chunks "
+                        "(bounded memory; identical output)")
+    q.set_defaults(func=cmd_protein2datapoints)
+
     q = sub.add_parser("motif-search")
     q.add_argument("-d", "--database", required=True)
     q.add_argument("-c", "--centers", required=True)
@@ -342,15 +650,22 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("-o", "--output", required=True)
     q.add_argument("-g", "--ground-truth")
     q.add_argument("--engine", choices=("lsh", "ivf", "exact", "stream"),
-                   default="lsh",
-                   help="lsh, ivf and exact run here; stream is not yet "
-                        "ported")
+                   default="lsh")
     q.add_argument("--segment-points", type=int, default=1 << 22,
-                   help="stream engine (not yet ported)")
+                   help="stream engine: points per host segment")
     q.add_argument("--device-budget", type=int, default=0,
-                   help="stream engine (not yet ported)")
-    q.add_argument("--index", help="stream engine (not yet ported)")
-    q.add_argument("--save-index", help="stream engine (not yet ported)")
+                   help="stream engine: device bytes for a resident"
+                   " segment prefix (clamped against free device memory"
+                   " minus two double-buffer slots and the search's"
+                   " working set; 0 = fully streamed)")
+    q.add_argument("--index",
+                   help="stream engine: load a saved segmented index"
+                   " (.npz from --save-index / index-build --engine"
+                   " stream) instead of building; its kind, k-mer length"
+                   " and point count must match the run")
+    q.add_argument("--save-index",
+                   help="stream engine: save the freshly built segmented"
+                   " index to this .npz")
     q.add_argument("--probes", type=int, default=1)
     q.add_argument("--max-hits", type=int, default=256)
     q.add_argument("--block-size", type=int, default=32)
@@ -360,10 +675,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ivf engine: accepted for compatibility; the block "
                         "select is always exact in this package")
     q.add_argument("--no-retry", action="store_true",
-                   help="ivf engine only: skip the lossless overflow retry."
-                   " k-blocks is then AUTOTUNED to the smallest cap whose"
-                   " measured weighted recall on a query sample reaches"
-                   " --target-recall (overflow counts still reported)")
+                   help="ivf and stream engines: skip the lossless overflow"
+                   " retry.  For ivf, k-blocks is then AUTOTUNED to the"
+                   " smallest cap whose measured weighted recall on a"
+                   " query sample reaches --target-recall (overflow counts"
+                   " still reported)")
     q.add_argument("--force-k-blocks", action="store_true",
                    help="with --no-retry: use exactly --k-blocks, skipping"
                    " the measured-recall autotune")
@@ -431,6 +747,85 @@ def build_parser() -> argparse.ArgumentParser:
     device_flag(q)
     q.set_defaults(func=cmd_postprocess)
 
+    q = sub.add_parser("evaluate2")
+    q.add_argument("-g", "--ground-truth", required=True)
+    q.add_argument("-r", "--result", required=True,
+                   help="result file or directory of result files")
+    q.add_argument("-T", "--radius", type=float, default=200.0)
+    q.add_argument("--weighting", choices=("search", "pivot"),
+                   default="pivot",
+                   help="'pivot' = evaluate2.cpp's 49.38 weighting")
+    q.set_defaults(func=cmd_evaluate2)
+
+    q = sub.add_parser("evaluate-motifs")
+    q.add_argument("-m", "--meme", required=True,
+                   help="MEME-style hit list: motif protein per line")
+    q.add_argument("-r", "--result", required=True,
+                   help="search triples: motif protein distance per line")
+    q.set_defaults(func=cmd_evaluate_motifs)
+
+    q = sub.add_parser("shuffle-kmers")
+    q.add_argument("-c", "--clusters", required=True)
+    q.add_argument("-o", "--output", required=True)
+    q.add_argument("--min-size", type=int, default=100)
+    q.add_argument("-m", "--num-motifs", type=int)
+    q.add_argument("-n", "--seqs-per-motif", type=int)
+    q.add_argument("--seed", type=int, default=0)
+    q.set_defaults(func=cmd_shuffle_kmers)
+
+    q = sub.add_parser("kmer2coordinates")
+    q.add_argument("-i", "--input", required=True)
+    q.add_argument("-o", "--output", required=True)
+    q.add_argument("-l", "--kmer-len", type=int, default=10)
+    q.set_defaults(func=cmd_kmer2coordinates)
+
+    q = sub.add_parser("gen-kmers")
+    q.add_argument("-d", "--database", required=True)
+    q.add_argument("-o", "--output", required=True)
+    q.add_argument("-l", "--kmer-len", type=int, default=10)
+    q.add_argument("--seed", type=int, default=0)
+    q.add_argument("--stream-aa", type=int, default=0, metavar="N",
+                   help="stream the FASTA in ~N-residue chunks")
+    q.set_defaults(func=cmd_gen_kmers)
+
+    q = sub.add_parser("orf")
+    q.add_argument("-q", "--query", required=True)
+    q.add_argument("-o", "--output")
+    q.add_argument("--min-len", type=int, default=6)
+    q.set_defaults(func=cmd_orf)
+
+    q = sub.add_parser("stockholm")
+    q.add_argument("-i", "--input", required=True)
+    q.add_argument("-o", "--output", required=True)
+    q.add_argument("-l", "--length", type=int, default=25)
+    q.add_argument("--sample-every", type=int, default=1)
+    q.set_defaults(func=cmd_stockholm)
+
+    q = sub.add_parser("index-build")
+    q.add_argument("-d", "--database", required=True)
+    q.add_argument("-o", "--output", required=True)
+    q.add_argument("-l", "--kmer-len", type=int, default=25)
+    q.add_argument("--engine", choices=("lsh", "ivf", "stream"),
+                   default="ivf")
+    q.add_argument("--segment-points", type=int, default=1 << 22,
+                   help="stream engine: points per host segment")
+    q.add_argument("--block-size", type=int, default=32)
+    common_lsh(q)
+    device_flag(q)
+    q.set_defaults(func=cmd_index_build)
+
+    q = sub.add_parser("serve")
+    q.add_argument("-i", "--index", required=True)
+    q.add_argument("--input", help="query file (default stdin)")
+    q.add_argument("-T", "--radius", type=float, default=35.0)
+    q.add_argument("--k-blocks", type=int, default=64)
+    q.add_argument("--probes", type=int, default=8)
+    q.add_argument("--device-budget", type=int, default=0,
+                   help="segmented index: device bytes for a resident"
+                   " prefix (clamped; 0 = fully streamed)")
+    device_flag(q)
+    q.set_defaults(func=cmd_serve)
+
     q = sub.add_parser("lsh-sweep")
     q.add_argument("-d", "--database", required=True)
     q.add_argument("-c", "--centers", required=True)
@@ -445,6 +840,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     from . import __version__
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in _NOT_PORTED:
+        raise SystemExit(f"{argv[0]}: not yet ported "
+                         f"({_NOT_PORTED[argv[0]]}); run it with "
+                         "python -m hsearch_tpu")
     p = build_parser()
     p.add_argument("--version", action="version",
                    version=f"hsearch_tpu_torch {__version__}")

@@ -59,6 +59,19 @@ def kmer_view(idx: np.ndarray, k: int, stride: int = 1) -> np.ndarray:
     return view[::stride]
 
 
+def randomize_unknown(idx: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """Replace INVALID entries with uniform-random AA indices drawn from a
+    seeded numpy rng (the reference's read-time replacement,
+    protein.hpp:59-63, made reproducible)."""
+    idx = np.asarray(idx)
+    bad = idx == INVALID
+    n_bad = int(bad.sum())
+    if n_bad:
+        idx = idx.copy()
+        idx[bad] = rng.integers(0, 20, size=n_bad, dtype=np.uint8)
+    return idx
+
+
 def randomize_unknown_at(idx: np.ndarray, seed: int,
                          offset: int = 0) -> np.ndarray:
     """Position-keyed INVALID replacement (splitmix64 of seed + position):

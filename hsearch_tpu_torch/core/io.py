@@ -1,9 +1,11 @@
-"""Text-format IO at the pipeline boundary (own copy of the parts of
-hsearch_tpu/core/io.py that motif search and clustering need).
+"""Text-format IO at the pipeline boundary (own copy of
+hsearch_tpu/core/io.py).
 
-  * FASTA protein databases (pure-Python parser; it gives the same
-    ``ProteinDB`` as the JAX package's native parser, including the
-    seeded position-keyed replacement of unknown residues).
+  * FASTA protein databases, whole or streamed in chunks of whole
+    proteins (pure-Python parser; it gives the same ``ProteinDB`` as the
+    JAX package's native parser, including the seeded position-keyed
+    replacement of unknown residues, so the chunks of ``stream_fasta``
+    concatenate to ``read_fasta``'s database).
   * "data points" files: a header line ``name#proteinIdx$offset@KMER*count``
     followed by one line of 8L floats.
   * hit "triples": ``center kmer distance`` per line.
@@ -14,6 +16,7 @@ hsearch_tpu/core/io.py that motif search and clustering need).
 from __future__ import annotations
 
 import dataclasses
+import io as _io
 import re
 
 import numpy as np
@@ -33,6 +36,10 @@ class ProteinDB:
     def num_proteins(self) -> int:
         return len(self.names)
 
+    @property
+    def lengths(self) -> np.ndarray:
+        return np.diff(self.starts)
+
     def protein(self, i: int) -> np.ndarray:
         return self.seq[self.starts[i]:self.starts[i + 1]]
 
@@ -42,6 +49,44 @@ def _open(path_or_file, mode: str):
     if isinstance(path_or_file, (str, bytes)):
         return open(path_or_file, mode), True
     return path_or_file, False
+
+
+def _records(f, name_upto_space: bool, drop_non_alpha: bool):
+    """(name, uint8 AA indices) of each FASTA record in order; text before
+    the first '>' is not sequence."""
+    name, cur = None, []
+
+    def seq():
+        raw = b"".join(cur)
+        if drop_non_alpha:
+            raw = bytes(c for c in raw if (65 <= (c & ~32) <= 90))
+        return alphabet.encode(raw)
+
+    for line in f:
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith(">"):
+            if name is not None:
+                yield name, seq()
+            name = line[1:]
+            if name_upto_space:
+                name = name.split(" ", 1)[0]
+            cur = []
+        elif name is not None:
+            cur.append(line.encode())
+    if name is not None:
+        yield name, seq()
+
+
+def _db(names: list[str], seqs: list[np.ndarray], seed: int | None,
+        offset: int = 0) -> ProteinDB:
+    seq = np.concatenate(seqs) if seqs else np.empty(0, np.uint8)
+    if seed is not None:
+        seq = alphabet.randomize_unknown_at(seq, seed, offset)
+    starts = np.zeros(len(seqs) + 1, np.int64)
+    np.cumsum([len(x) for x in seqs], out=starts[1:])
+    return ProteinDB(names=names, seq=seq, starts=starts)
 
 
 def read_fasta(path_or_file, *, seed: int | None = 0,
@@ -54,53 +99,65 @@ def read_fasta(path_or_file, *, seed: int | None = 0,
     seed and position).
     """
     f, close = _open(path_or_file, "r")
-    names: list[str] = []
-    chunks: list[np.ndarray] = []
-    starts = [0]
-    cur: list[bytes] = []
-    total = 0
-
-    def _flush():
-        nonlocal total
-        if not names:
-            cur.clear()      # text before the first '>' is not sequence
-            return
-        raw = b"".join(cur)
-        if drop_non_alpha:
-            raw = bytes(c for c in raw if (65 <= (c & ~32) <= 90))
-        idx = alphabet.encode(raw)
-        chunks.append(idx)
-        total += len(idx)
-        starts.append(total)
-        cur.clear()
-
     try:
-        for line in f:
-            line = line.strip()
-            if not line:
-                continue
-            if line.startswith(">"):
-                _flush()
-                name = line[1:]
-                if name_upto_space:
-                    name = name.split(" ", 1)[0]
-                names.append(name)
-            else:
-                cur.append(line.encode())
-        _flush()
+        recs = list(_records(f, name_upto_space, drop_non_alpha))
+    finally:
+        if close:
+            f.close()
+    return _db([n for n, _ in recs], [s for _, s in recs], seed)
+
+
+def stream_fasta(path_or_file, *, chunk_aa: int = 1 << 24,
+                 seed: int | None = 0, name_upto_space: bool = True,
+                 drop_non_alpha: bool = True):
+    """Yield ProteinDB chunks of >= ``chunk_aa`` residues (whole proteins;
+    a protein longer than ``chunk_aa`` is a chunk of its own).
+
+    Unknown-residue replacement is keyed by each residue's global
+    position, so the chunks concatenate to ``read_fasta``'s database with
+    the same seed, while host memory holds one chunk.
+    """
+    f, close = _open(path_or_file, "r")
+    names: list[str] = []
+    seqs: list[np.ndarray] = []
+    total = offset = 0
+    try:
+        for name, idx in _records(f, name_upto_space, drop_non_alpha):
+            if total >= chunk_aa:
+                yield _db(names, seqs, seed, offset)
+                offset += total
+                names, seqs, total = [], [], 0
+            names.append(name)
+            seqs.append(idx)
+            total += len(idx)
+        if names:
+            yield _db(names, seqs, seed, offset)
     finally:
         if close:
             f.close()
 
-    seq = np.concatenate(chunks) if chunks else np.empty(0, np.uint8)
-    if seed is not None:
-        seq = alphabet.randomize_unknown_at(seq, seed)
-    return ProteinDB(names=names, seq=seq,
-                     starts=np.asarray(starts, dtype=np.int64))
+
+def write_fasta(path_or_file, names, seqs) -> None:
+    """``>name`` / sequence lines; index arrays are decoded."""
+    f, close = _open(path_or_file, "w")
+    try:
+        for name, s in zip(names, seqs):
+            if isinstance(s, np.ndarray):
+                s = alphabet.decode(s)
+            f.write(f">{name}\n{s}\n")
+    finally:
+        if close:
+            f.close()
 
 
 _DP_HEADER = re.compile(r"^(?P<name>.*)#(?P<pid>\d+)\$(?P<off>\d+)@"
                         r"(?P<kmer>[A-Z]+)\*(?P<cnt>\d+)$")
+
+
+def datapoint_header(name: str, protein_idx: int, offset: int,
+                     kmer: str, count: int) -> str:
+    """``name#proteinIdx$offset@kmer*count`` (protein2datapoints.cpp:64)."""
+    return f"{name}#{protein_idx}${offset}@{kmer}*{count}"
 
 
 def parse_datapoint_header(header: str):
@@ -139,6 +196,19 @@ def read_datapoints(path_or_file, dim: int):
             f.close()
     pts = np.stack(rows) if rows else np.empty((0, dim), np.float64)
     return names, pts
+
+
+def write_datapoints(path_or_file, names, points, fmt: str = "%g") -> None:
+    """Alternating header and values lines (Point::Output,
+    protein2datapoints.cpp:23-29)."""
+    f, close = _open(path_or_file, "w")
+    try:
+        for name, row in zip(names, points):
+            f.write(name + "\n")
+            f.write(" ".join(fmt % v for v in np.asarray(row)) + "\n")
+    finally:
+        if close:
+            f.close()
 
 
 def write_triples(path_or_file, triples) -> None:
@@ -205,3 +275,8 @@ def read_clusters(path_or_file) -> list[list[str]]:
         if close:
             f.close()
     return clusters
+
+
+def from_strings(text: str):
+    """Wrap a string as a file-like object for the readers above."""
+    return _io.StringIO(text)

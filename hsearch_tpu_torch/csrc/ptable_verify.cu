@@ -32,6 +32,15 @@
 // is bitwise equal to it (there is no multiply, so no FMA contraction can
 // change the rounding).  The hit count is a warp ballot and popcount with
 // one integer atomic per warp, so n_hits is exact.
+//
+// Index arithmetic: block ids, row and candidate offsets within a tile
+// are int (a block id < 2^31; a tile holds at most 512 candidates); every
+// offset into blk_ids, neg, order, db and d2m is size_t, so C*kb*bs and
+// B*bs*L may exceed 2^31.  A grid covers at most 65,535 tiles in y, so
+// the host launches one grid per 65,535 tiles, each with its first tile
+// (tile0): kb may then be as large as B (the exactness retry's last
+// rung; B ~ 2^21 blocks at --segment-points 2^26).  C must stay below
+// 2^31.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,6 +51,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int TILE_CAND = 512;   // candidates a block aims to cover
 constexpr int NAA = 20;
+constexpr int kMaxGridY = 65535;  // the largest grid extent in y
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -56,7 +66,7 @@ verify_kernel(const float* __restrict__ ptab,
               const int64_t* __restrict__ blk_ids,
               const float* __restrict__ neg, float r2, int n,
               float* __restrict__ d2m, int* __restrict__ n_hits, int kb,
-              int bs, int L, int tile_blocks) {
+              int bs, int L, int tile_blocks, int tile0) {
   extern __shared__ __align__(16) unsigned char smem[];
   // [P-table, L*20 floats | block ids, padded to 16 bytes | rows]
   float* tab = reinterpret_cast<float*>(smem);
@@ -65,7 +75,7 @@ verify_kernel(const float* __restrict__ ptab,
       smem + 4 * NAA * L + (4 * tile_blocks + 15) / 16 * 16);
 
   const int c = blockIdx.x;
-  const int j0 = blockIdx.y * tile_blocks;
+  const int j0 = (tile0 + (int)blockIdx.y) * tile_blocks;
   const int nb = min(tile_blocks, kb - j0);
   const int tid = threadIdx.x;
   const int row_bytes = bs * L;
@@ -146,21 +156,29 @@ extern "C" int hs_ptable_verify(const float* ptab, const int8_t* db,
     int tb;
     const int smem = smem_bytes(bs, L, &tb);
     const bool vec = (bs * L) % 16 == 0 && (uintptr_t)db % 16 == 0;
-    const dim3 grid(C, (kb + tb - 1) / tb);
+    const int tiles = (kb + tb - 1) / tb;
     if (vec) {
       err = cudaFuncSetAttribute(verify_kernel<true>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);
-      if (err != cudaSuccess) return (int)err;
-      verify_kernel<true><<<grid, THREADS, smem, s>>>(
-          ptab, db, order, blk_ids, neg, r2, n, d2m, n_hits, kb, bs, L, tb);
     } else {
       err = cudaFuncSetAttribute(verify_kernel<false>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);
+    }
+    if (err != cudaSuccess) return (int)err;
+    for (int t0 = 0; t0 < tiles; t0 += kMaxGridY) {
+      const dim3 grid(C, tiles - t0 < kMaxGridY ? tiles - t0 : kMaxGridY);
+      if (vec)
+        verify_kernel<true><<<grid, THREADS, smem, s>>>(
+            ptab, db, order, blk_ids, neg, r2, n, d2m, n_hits, kb, bs, L, tb,
+            t0);
+      else
+        verify_kernel<false><<<grid, THREADS, smem, s>>>(
+            ptab, db, order, blk_ids, neg, r2, n, d2m, n_hits, kb, bs, L, tb,
+            t0);
+      err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
-      verify_kernel<false><<<grid, THREADS, smem, s>>>(
-          ptab, db, order, blk_ids, neg, r2, n, d2m, n_hits, kb, bs, L, tb);
     }
   }
   return (int)cudaGetLastError();

@@ -195,6 +195,9 @@ def sq_distance_prune(q_emb: torch.Tensor, centroids: torch.Tensor,
         raise ValueError(f"sq_distance_prune: D={d} must be a multiple of 4"
                          " and the operands 16-byte aligned")
     bp = -(-b // PRUNE_GROUP) * PRUNE_GROUP
+    if -(-bp // 128) > 65535:
+        raise ValueError(f"sq_distance_prune: B={b} blocks exceeds the "
+                         "kernel grid's 65535 tiles of 128 (B <= 8,388,480)")
     # one reduction per operand, with no (rows, D) temporary
     q_sqnorm = torch.linalg.vector_norm(q_emb, dim=1).square()
     cent_sqnorm = torch.linalg.vector_norm(centroids, dim=1).square()

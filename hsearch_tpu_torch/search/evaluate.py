@@ -4,7 +4,8 @@ copy of hsearch_tpu/search/evaluate.py; pure numpy).
 Matches (center, kmer) pairs between the exact hit set and the accelerated
 output and reports the distance-weighted recall TP / (TP + FN) with the
 reference's weight (motif_both_points.cpp:67-87), plus the per-distance-bin
-accuracy histogram written to ``<out>.accuracy.txt``.
+accuracy histogram written to ``<out>.accuracy.txt``; and the MEME-vs-search
+motif coverage comparison of evaluate.cpp.
 """
 
 from __future__ import annotations
@@ -33,6 +34,13 @@ def weight2(dis: float) -> float:
     if dis > PIVOT2:
         return min(dis / (2 * PIVOT2), 1.0)
     return 1.0 - dis / (2 * PIVOT2)
+
+
+def weight_array(dis: np.ndarray) -> np.ndarray:
+    """Vectorized weight()."""
+    dis = np.asarray(dis, np.float64)
+    w = np.where(dis < 24.0, 1.0, 1.0 / np.maximum(dis - 24.0, 1e-30))
+    return np.clip(np.where((w > 1.0) | (w < 0.0), 1.0, w), 0.0, 1.0)
 
 
 @dataclasses.dataclass
@@ -99,3 +107,23 @@ def write_accuracy_file(path: str, report: RecallReport) -> None:
                 f.write(f"{b} 0 fn {fe}\n")
             else:
                 f.write(f"{b} 1 tp {t}\n")
+
+
+def motif_protein_set_ratio(meme_pairs, hclust_triples):
+    """MEME-vs-hclust motif coverage comparison (evaluate.cpp:19-63).
+
+    meme_pairs: iterable of (motif, protein) from a MEME-style hit list;
+    hclust_triples: iterable of (motif, protein, distance) from the
+    search output.  Returns (sum_meme, sum_hclust, ratio) where each sum
+    counts distinct proteins per motif over the union of motif names.
+    """
+    a: dict = {}
+    for m, p in meme_pairs:
+        a.setdefault(m, set()).add(p)
+    b: dict = {}
+    for m, p, _ in hclust_triples:
+        b.setdefault(m, set()).add(p)
+    motifs = set(a) | set(b)
+    sum1 = sum(len(a.get(m, ())) for m in motifs)
+    sum2 = sum(len(b.get(m, ())) for m in motifs)
+    return sum1, sum2, (sum2 / sum1 if sum1 else float("inf"))

@@ -3,8 +3,9 @@ hsearch_tpu/search/ivf.py).
 
   build:  sample cell centers from the data, assign every embedded k-mer
           point to its nearest center with a blocked GEMM and argmin, sort
-          the database by cell, cut cell-aligned blocks of ``block_size``
-          points and record each block's centroid and covering radius.
+          the database by cell (optionally after Lloyd iterations), cut
+          cell-aligned blocks of ``block_size`` points and record each
+          block's centroid and covering radius.
   query:  per center block, the ``sq_distance_prune`` kernel computes the
           distance to every block centroid and keeps a block only if
           d(q, centroid) <= R + block_radius (triangle inequality); the
@@ -67,18 +68,22 @@ class IVFIndex:
         return self.db_sorted.device
 
 
+def _sample_ids(n: int, n_cells: int,
+                generator: torch.Generator) -> torch.Tensor:
+    """Uniformly sampled row ids of the cell centroids, drawn on the CPU
+    generator: without replacement (``randperm``) unless there are fewer
+    points than cells."""
+    if n < n_cells:
+        return torch.randint(0, n, (n_cells,), generator=generator)
+    return torch.randperm(n, generator=generator)[:n_cells]
+
+
 def _sample_centroids(km: torch.Tensor, generator: torch.Generator,
                       n_cells: int) -> torch.Tensor:
-    """Uniformly sampled cell centroids, embedded: (n_cells, 8L) f32.
-
-    Without replacement (``randperm``) unless there are fewer points than
-    cells; drawn on the CPU generator and moved to ``km``'s device.
-    """
+    """Uniformly sampled cell centroids, embedded: (n_cells, 8L) f32,
+    moved to ``km``'s device."""
     n, l = km.shape
-    if n < n_cells:
-        idx = torch.randint(0, n, (n_cells,), generator=generator)
-    else:
-        idx = torch.randperm(n, generator=generator)[:n_cells]
+    idx = _sample_ids(n, n_cells, generator)
     coords = distance.const("coords", km.device)
     return coords[km[idx.to(km.device)].long()].reshape(
         n_cells, l * coords.shape[1])
@@ -160,6 +165,34 @@ def _cell_aligned_groups(cells: np.ndarray, n_cells: int,
     return flat.reshape(-1, group)
 
 
+def _block_bounds(db_c: torch.Tensor, valid: torch.Tensor,
+                  coords: torch.Tensor):
+    """(m, bs, L) int8 rows and their (m, bs) validity -> each block's
+    embedded centroid (m, 8L) f32 and covering radius (m,).
+
+    Per position, the centroid is the residue counts (exact integers)
+    times the coordinate table over the row count, and a row's squared
+    distance to it is a sum of L entries of a (m, L, 20) table of each
+    residue's squared distance to the centroid's position: no (m, bs, 8L)
+    embedding is made.  The one formula for both the build (``_stage2``)
+    and the segmented engine's bounds pass after an upload
+    (search/stream.py), so a streamed segment is bounded bitwise like a
+    resident one.
+    """
+    m, bs, l = db_c.shape
+    a = db_c.long().transpose(1, 2)                          # (m, L, bs)
+    w = valid[:, None, :].expand(m, l, bs).to(coords.dtype)
+    counts = torch.zeros((m, l, coords.shape[0]), dtype=coords.dtype,
+                         device=coords.device).scatter_add_(2, a, w)
+    cnt = torch.clamp_min(valid.sum(dim=1), 1).to(coords.dtype)
+    cent = (counts @ coords) / cnt[:, None, None]            # (m, L, 8)
+    diff = coords[None, None] - cent[:, :, None, :]          # (m, L, 20, 8)
+    tab = torch.sum(diff * diff, dim=-1)                     # (m, L, 20)
+    d2 = torch.gather(tab, 2, a).sum(dim=1)                  # (m, bs)
+    d2 = torch.where(valid, d2, torch.zeros_like(d2))
+    return cent.reshape(m, -1), torch.sqrt(torch.amax(d2, dim=1))
+
+
 def _stage2(km8: torch.Tensor, order_blocks: torch.Tensor, n: int,
             block_size: int, bchunk: int = 4096):
     """Gather the block-sorted database and bound each block, in chunks of
@@ -174,17 +207,47 @@ def _stage2(km8: torch.Tensor, order_blocks: torch.Tensor, n: int,
     for s in range(0, order_blocks.shape[0], bchunk):
         ob_c = order_blocks[s:s + bchunk]
         db_c = km_pad[ob_c.long()]                       # (m, bs, l) int8
-        emb = coords[db_c.long()].reshape(ob_c.shape[0], block_size,
-                                          l * coords.shape[1])
-        valid = (ob_c < n)[:, :, None]
-        cnt = torch.clamp_min(valid.sum(dim=1), 1)
-        cent = torch.sum(emb * valid, dim=1) / cnt
-        d2 = torch.sum((emb - cent[:, None, :]) ** 2, dim=-1)
-        d2 = torch.where(valid[..., 0], d2, torch.zeros_like(d2))
+        cent, rad = _block_bounds(db_c, ob_c < n, coords)
         db_out.append(db_c.reshape(-1, block_size * l))
         cent_out.append(cent)
-        rad_out.append(torch.sqrt(torch.amax(d2, dim=1)))
+        rad_out.append(rad)
     return torch.cat(db_out), torch.cat(cent_out), torch.cat(rad_out)
+
+
+def _assign_points(points: torch.Tensor, centroids: torch.Tensor,
+                   block: int = 8192) -> torch.Tensor:
+    """Nearest centroid of each (N, D) point in full float32, in blocks of
+    ``block`` rows; the first minimum on ties.  (N,) int32."""
+    out = torch.empty(points.shape[0], dtype=torch.int32,
+                      device=points.device)
+    for s in range(0, points.shape[0], block):
+        out[s:s + block] = torch.argmin(
+            distance.sq_distance_matrix(points[s:s + block], centroids),
+            dim=1)
+    return out
+
+
+def _lloyd(points: torch.Tensor, centroids: torch.Tensor, iters: int,
+           block: int = 8192):
+    """Lloyd k-means from given initial centroids (the refinement of
+    hsearch_tpu/search/ivf.py's ``_kmeans_cells``, whose random draw of
+    the initial centroids the caller makes).
+
+    Each iteration assigns every point to its nearest centroid and moves
+    each centroid to the mean of its points (a segment sum with
+    ``index_add_``); an empty cell keeps its centroid.  On a CUDA device
+    the float sums are atomic, so their last bits depend on the order the
+    points arrive in.  Returns (assignment (N,) int32, final centroids).
+    """
+    n_cells = centroids.shape[0]
+    for _ in range(iters):
+        a = _assign_points(points, centroids, block).long()
+        sums = torch.zeros_like(centroids).index_add_(0, a, points)
+        cnt = torch.bincount(a, minlength=n_cells).to(points.dtype)
+        centroids = torch.where(cnt[:, None] > 0,
+                                sums / torch.clamp_min(cnt, 1.0)[:, None],
+                                centroids)
+    return _assign_points(points, centroids, block), centroids
 
 
 def build_index(db_kmers: np.ndarray, generator: torch.Generator,
@@ -194,14 +257,12 @@ def build_index(db_kmers: np.ndarray, generator: torch.Generator,
     """Sample-assign cells, sort, cut cell-aligned blocks, bound each.
 
     Cell centers are sampled uniformly from the data (n_cells defaults to
-    N/block_size); one blocked assignment GEMM gives cell ids.  Blocks
-    never span cells, so a dense natural cluster yields tight blocks.
+    N/block_size); one blocked assignment GEMM gives cell ids, and
+    ``kmeans_iters`` Lloyd iterations refine them (``_lloyd``; this path
+    embeds all N points, (N, 8L) float32, on the device).  Blocks never
+    span cells, so a dense natural cluster yields tight blocks.
     ``generator`` is a CPU ``torch.Generator`` (the seed of the build).
     """
-    if kmeans_iters:
-        raise NotImplementedError(
-            "Lloyd refinement (kmeans_iters > 0) is not ported yet "
-            "(ROADMAP A.3a)")
     dev = _device.resolve(device)
     n, l = db_kmers.shape
     _check_kmers(db_kmers, "db_kmers")
@@ -209,11 +270,18 @@ def build_index(db_kmers: np.ndarray, generator: torch.Generator,
     km = torch.as_tensor(host_km, device=dev)
     if n_cells is None:
         n_cells = max(1, n // block_size)
-    # past 2^18 cells the (block, n_cells) assignment matrix is chunked
-    # along cells (the JAX package's rule, kept unchanged)
-    cc = 16384 if n_cells > (1 << 18) else None
-    cells = _assign_cells_kmers(km, generator, n_cells,
-                                cell_chunk=cc).cpu().numpy()
+    if kmeans_iters:
+        coords = distance.const("coords", dev)
+        points = coords[km.long()].reshape(n, l * coords.shape[1])
+        init = points[_sample_ids(n, n_cells, generator).to(dev)]
+        cells = _lloyd(points, init, kmeans_iters)[0].cpu().numpy()
+        del points, init
+    else:
+        # past 2^18 cells the (block, n_cells) assignment matrix is
+        # chunked along cells (the JAX package's rule, kept unchanged)
+        cc = 16384 if n_cells > (1 << 18) else None
+        cells = _assign_cells_kmers(km, generator, n_cells,
+                                    cell_chunk=cc).cpu().numpy()
     order_blocks = torch.as_tensor(
         _cell_aligned_groups(cells, n_cells, block_size, n), device=dev)
     db_sorted, cent, rad = _stage2(km, order_blocks, n, block_size)
@@ -338,7 +406,7 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
            center_block: int = 256, retry_overflow: bool = True,
            stats_out: dict | None = None, pack_cap_frac: int = 4,
            approx_select: bool | None = None,
-           transfer_d2: bool | None = None):
+           transfer_d2: bool | None = None, after_dispatch=None):
     """All (center, kmer) pairs within ``radius`` — exact, block-pruned.
 
     Runs on the index's device.  Returns (center_idx, kmer_idx, dist) host
@@ -360,7 +428,10 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
 
     ``approx_select`` is accepted for the JAX package's signature; the
     block select is always exact here (the approximate select exists only
-    on a TPU backend there).
+    on a TPU backend there).  ``after_dispatch()``, when given, is called
+    once every center block's device work is queued and before any result
+    is read back: the segmented engine queues its next upload there, so
+    the copy runs under this search's kernels.
     """
     dev = index.device
     c_total = centers.shape[0]
@@ -402,6 +473,8 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
         pending.append((s, real, _search_block(
             index, cdev[s:s + center_block], edev[s:s + center_block], r,
             k_blocks, max_hits, pack_cap_frac, transfer_d2)))
+    if after_dispatch is not None:
+        after_dispatch()
     max_alive = 0
     for s, real, (packed, ids, d2) in pending:
         packed_np = packed.cpu().numpy()

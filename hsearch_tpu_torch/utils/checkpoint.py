@@ -1,9 +1,9 @@
 """Index serialization (counterpart of hsearch_tpu/utils/checkpoint.py).
 
-The ``ivf`` and ``motif`` kinds, in the JAX package's ``.npz`` format
-(arrays plus a small json header, with the same field names), readable and
-writable with numpy alone — so an index built by either package can be
-searched by the other.
+The ``ivf``, ``motif`` and ``segivf`` kinds, in the JAX package's ``.npz``
+format (arrays plus a small json header, with the same field names),
+readable and writable with numpy alone — so an index built by either
+package can be searched by the other.
 """
 
 from __future__ import annotations
@@ -14,13 +14,30 @@ import numpy as np
 import torch
 
 from .. import _device
-from ..search import ivf, motif
+from ..search import ivf, motif, stream
 
 
 def save_index(path: str, index) -> None:
-    """Serialize an IVFIndex (kind ``ivf``) or a MotifIndex (kind
-    ``motif``) to ``path`` (.npz)."""
-    if isinstance(index, motif.MotifIndex):
+    """Serialize an IVFIndex (kind ``ivf``), a MotifIndex (kind ``motif``)
+    or a SegmentedIVF (kind ``segivf``) to ``path`` (.npz)."""
+    if isinstance(index, stream.SegmentedIVF):
+        # the host byte set is the checkpoint: per-segment rows and order
+        # maps, uncompressed (the rows are high-entropy); the k-mers and
+        # the bounds are derived at load and upload
+        arrays = {}
+        for i, s in enumerate(index.segments):
+            arrays[f"seg{i}_db"] = s.db_sorted
+            arrays[f"seg{i}_order"] = s.order
+        np.savez(path, __kind__="segivf",
+                 meta=json.dumps({
+                     "n_points": index.n_points,
+                     "kmer_len": index.kmer_len,
+                     "block_size": index.block_size,
+                     "segments": [{"offset": s.offset,
+                                   "n_points": s.n_points}
+                                  for s in index.segments]}),
+                 **arrays)
+    elif isinstance(index, motif.MotifIndex):
         np.savez_compressed(
             path, __kind__="motif",
             meta=json.dumps({"cand_max": index.cand_max,
@@ -70,12 +87,38 @@ def index_from_arrays(db_sorted: np.ndarray, order: np.ndarray,
         n_points=int(n_points), host_kmers=host_km, kmer_len=int(kmer_len))
 
 
-def load_index(path: str, device: str | torch.device = "cuda"):
-    """Load an ``ivf`` or ``motif`` index saved by either package onto
-    ``device``."""
+def peek(path: str) -> tuple[str, dict]:
+    """(kind, json header) of a saved index, without reading its arrays."""
+    with np.load(path, allow_pickle=False) as z:
+        return str(z["__kind__"]), json.loads(str(z["meta"]))
+
+
+def load_index(path: str, device_budget_bytes: int = 0,
+               device: str | torch.device = "cuda"):
+    """Load an ``ivf``, ``motif`` or ``segivf`` index saved by either
+    package onto ``device``.
+
+    A ``segivf`` index loads host-resident (page-locked on a CUDA device);
+    ``device_budget_bytes`` re-pins its leading segments device-resident
+    through ``stream.set_residency``.  The budget is ignored for the other
+    kinds, which load whole onto the device."""
     z = np.load(path, allow_pickle=False)
     kind = str(z["__kind__"])
     meta = json.loads(str(z["meta"]))
+    if kind == "segivf":
+        dev = _device.resolve(device)
+        l = int(meta["kmer_len"])
+        segs = [stream.host_segment_from_arrays(
+                    z[f"seg{i}_db"], z[f"seg{i}_order"], int(sm["offset"]),
+                    int(sm["n_points"]), l, pin=dev.type == "cuda")
+                for i, sm in enumerate(meta["segments"])]
+        sidx = stream.SegmentedIVF(
+            segments=segs, n_points=int(meta["n_points"]), kmer_len=l,
+            block_size=int(meta["block_size"]),
+            resident=[None] * len(segs), device=dev)
+        if device_budget_bytes:
+            stream.set_residency(sidx, device_budget_bytes)
+        return sidx
     if kind == "motif":
         return motif.index_from_arrays(
             z["a"], z["b"], float(meta["w"]), int(meta["pack_bits"]),
@@ -83,7 +126,7 @@ def load_index(path: str, device: str | torch.device = "cuda"):
             int(meta["cand_max"]), device)
     if kind != "ivf":
         raise ValueError(f"index kind {kind!r} in {path} is not ported yet "
-                         "(only 'ivf' and 'motif' load)")
+                         "(only 'ivf', 'motif' and 'segivf' load)")
     ds = z["db_sorted"]
     kmer_len = int(ds.shape[2]) if ds.ndim == 3 else int(meta["kmer_len"])
     return index_from_arrays(ds, z["order"], z["block_centroid"],

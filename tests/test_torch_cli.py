@@ -1,5 +1,6 @@
-"""python -m hsearch_tpu_torch motif-search / motif-search-exact with
---device cpu: output files equal to hsearch_tpu's on the same inputs."""
+"""python -m hsearch_tpu_torch's tools (with --device cpu where they touch a
+tensor): output files equal to hsearch_tpu's on the same inputs, and
+indexes that either package saves served by the other."""
 
 import numpy as np
 import pytest
@@ -66,6 +67,15 @@ CASES = {
                    "centers", False),
     "engine_ivf_points": ("motif-search", ["--engine", "ivf"], "points",
                           False),
+    # the segmented engine, lossless: 3 segments of 64 k-mers
+    "engine_stream": ("motif-search", ["--engine", "stream",
+                                       "--segment-points", "64",
+                                       "--block-size", "4", "--k-blocks",
+                                       "16", "--max-hits", "512"],
+                      "centers", False),
+    "engine_stream_points": ("motif-search", ["--engine", "stream",
+                                              "--segment-points", "64"],
+                             "points", False),
 }
 
 
@@ -115,13 +125,12 @@ def test_no_retry_autotune(tmp_path, inputs, capsys):
     assert got <= truth and len(got) >= 0.99 * len(truth)
 
 
-@pytest.mark.parametrize("engine", ["stream"])
-def test_unported_engines_exit_clearly(tmp_path, inputs, engine):
-    with pytest.raises(SystemExit, match="not yet ported.*ROADMAP A.5"):
-        cli.main(["motif-search", "-d", inputs["db"], "-c",
-                  inputs["centers"], "-l", "10", "-o",
-                  str(tmp_path / "x.txt"), "--engine", engine,
-                  "--device", "cpu"])
+@pytest.mark.parametrize("tool,item", [("pcluster", "A.8"),
+                                       ("fit-embedding", "A.9")])
+def test_unported_tools_exit_clearly(tmp_path, inputs, tool, item):
+    with pytest.raises(SystemExit, match=f"not yet ported.*ROADMAP {item}"):
+        cli.main([tool, "-d", inputs["db"], "-o", str(tmp_path / "x")])
+
 
 
 @pytest.mark.parametrize("flag", ["--dist-nproc", "--dist-pid"])
@@ -244,3 +253,200 @@ def test_postprocess_equals_jax(tmp_path, families):
                  for n in ("torch", "jax"))
     assert got.size > 1
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+STREAM = ["--engine", "stream", "--segment-points", "64", "--block-size",
+          "4", "--k-blocks", "16", "--max-hits", "512"]
+
+
+@pytest.mark.parametrize("saver", ["jax", "torch"])
+def test_stream_index_saved_by_either_package(tmp_path, inputs, capsys,
+                                              saver):
+    """--save-index by one package, --index in both: the same hit set as
+    the exact tool."""
+    base = ["-d", inputs["db"], "-c", inputs["centers"], "-l", "10",
+            "-T", "30"]
+    gt = str(tmp_path / "gt.txt")
+    cli.main(["motif-search-exact", *base, "-o", gt, "--device", "cpu"])
+    truth = {t[:2] for t in _triples(gt)}
+    ckpt = str(tmp_path / "seg.npz")
+    mains = {"jax": (jcli.main, []), "torch": (cli.main, ["--device", "cpu"])}
+    main, dev = mains[saver]
+    main(["motif-search", *base, "-o", str(tmp_path / "built.txt"),
+          *STREAM, "--save-index", ckpt, *dev])
+    for name, (main, dev) in mains.items():
+        out = str(tmp_path / f"{name}.txt")
+        capsys.readouterr()
+        main(["motif-search", *base, "-o", out, *STREAM, "--index", ckpt,
+              *dev])
+        assert "segmented index reloaded" in capsys.readouterr().err
+        assert {t[:2] for t in _triples(out)} == truth
+    assert len(truth) > 40
+
+
+def test_stream_index_is_checked(tmp_path, inputs):
+    """--index must hold a segivf index of -l-mers over -d's rows."""
+    base = ["-c", inputs["centers"], "-o", str(tmp_path / "x.txt"),
+            "--engine", "stream", "--device", "cpu"]
+    ivf_idx = str(tmp_path / "ivf.npz")
+    cli.main(["index-build", "-d", inputs["db"], "-o", ivf_idx, "-l", "10",
+              "--engine", "ivf", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="'ivf' index.*segivf"):
+        cli.main(["motif-search", "-d", inputs["db"], "-l", "10",
+                  "--index", ivf_idx, *base])
+    seg = str(tmp_path / "seg.npz")
+    cli.main(["index-build", "-d", inputs["db"], "-o", seg, "-l", "10",
+              "--engine", "stream", "--segment-points", "64",
+              "--device", "cpu"])
+    with pytest.raises(SystemExit, match="10-mers, but -l is 8"):
+        cli.main(["motif-search", "-d", inputs["db"], "-l", "8",
+                  "--index", seg, *base])
+    small = tmp_path / "small.fasta"
+    small.write_text("".join(open(inputs["db"]).readlines()[:20]))
+    with pytest.raises(SystemExit, match="150 points.*has 10 k-mers"):
+        cli.main(["motif-search", "-d", str(small), "-l", "10",
+                  "--index", seg, *base])
+
+
+SERVE_BUILD = {"ivf": ["--engine", "ivf", "--block-size", "8"],
+               "stream": ["--engine", "stream", "--segment-points", "64",
+                          "--block-size", "4"],
+               "lsh": ["--engine", "lsh", "-L", "8"]}
+
+
+def _served(out: str):
+    hits = [ln.split() for ln in out.splitlines()
+            if ln and not ln.startswith("#")]
+    return {(q, k): float(d) for q, k, d in hits}
+
+
+@pytest.mark.parametrize("built_by", ["jax", "torch"])
+@pytest.mark.parametrize("engine", sorted(SERVE_BUILD))
+def test_index_build_and_serve_across_packages(tmp_path, inputs, capsys,
+                                               engine, built_by):
+    """index-build by one package; serve in both answers each query with
+    the same hits."""
+    idx = str(tmp_path / "idx.npz")
+    mains = {"jax": (jcli.main, []), "torch": (cli.main, ["--device", "cpu"])}
+    main, dev = mains[built_by]
+    main(["index-build", "-d", inputs["db"], "-o", idx, "-l", "10",
+          *SERVE_BUILD[engine], *dev])
+    rows = [ln.strip() for ln in open(inputs["db"]) if not
+            ln.startswith(">")]
+    q = tmp_path / "q.txt"
+    q.write_text("\n".join([rows[0], rows[45], "ARND", rows[90],
+                            rows[140]]) + "\n\n" + rows[1] + "\n")
+    served = {}
+    for name, (main, dev) in mains.items():
+        capsys.readouterr()
+        main(["serve", "-i", idx, "--input", str(q), "-T", "25",
+              "--k-blocks", "64", "--probes", "4", *dev])
+        res = capsys.readouterr()
+        assert "# query must be length 10" in res.err
+        served[name] = _served(res.out)
+    assert served["torch"].keys() == served["jax"].keys()
+    assert {s for s, _ in served["torch"]} == {rows[0], rows[45], rows[90],
+                                               rows[140]}
+    for k, v in served["torch"].items():
+        np.testing.assert_allclose(v, served["jax"][k], rtol=1e-5,
+                                   atol=1e-4)
+
+
+# ---- data preparation and evaluation tools -----------------------------------
+
+@pytest.fixture
+def prep(tmp_path, rng):
+    """Inputs of the host-only tools: proteins with unknown and lowercase
+    residues, a cluster file, DNA, a two-entry STOCKHOLM file, and hit
+    triples with a truth set."""
+    paths = {}
+    prot = tmp_path / "prot.fasta"
+    with open(prot, "w") as f:
+        f.write("text before the first record\n")
+        for i in range(40):
+            s = "".join(AA[j] for j in rng.integers(0, 20,
+                                                   int(rng.integers(20, 90))))
+            if i % 4 == 0:
+                s = "WWCHHKKRRF" + s
+            if i % 5 == 1:
+                s = s[:7] + "XB" + s[9:].lower()
+            f.write(f">p{i} desc {i}\n{s[:40]}\n{s[40:]}\n")
+    paths["prot"] = str(prot)
+    clusters = tmp_path / "clusters.txt"
+    clusters.write_text("".join(
+        f"#clusterid:{c}:size{n}\n" + "".join(
+            "".join(AA[j] for j in rng.integers(0, 20, 10)) + "\n"
+            for _ in range(n))
+        for c, n in enumerate((5, 1, 7, 3))))
+    paths["clusters"] = str(clusters)
+    dna = tmp_path / "dna.fasta"
+    dna.write_text(">d1 x\nATGGCCATTGTAATGGGCCGCTGAAAGGGTGCCCGATAG\n"
+                   ">d2\natggcgtttaaacccgggTTTAAACCCGGGATGNNNAAATTT\n"
+                   "ACGTACGTTAGCATGCATGCATGCATGCATGCATGC\n")
+    paths["dna"] = str(dna)
+    stk = tmp_path / "fam.stk"
+    stk.write_text(
+        "# STOCKHOLM 1.0\n#=GF ID F1\n#=GF AC PF1\n#=GF SQ 3\n"
+        "s1/1-20  MKVLAA.GHHKKRRFWWCHHK\n"
+        "s2/3-22  MKVLaaAGHHKKRRFWWCHHK\n"
+        "s3/1-12  MK-LAA.GHHKK\n"
+        "s1/1-20  WWQQ\n//\n"
+        "# STOCKHOLM 1.0\n#=GF ID F2\n#=GF AC PF2\n"
+        "t1/5-30  PPGGSSTTAAWWYYVVLLIIKK\n"
+        "t2/5-30  MKVLAAGHHKKRRFWWCHHKLL\n//\n")
+    paths["stk"] = str(stk)
+    gt = tmp_path / "gt.txt"
+    gt.write_text("c0 k0 5.0\nc0 k1 10.0\nc0 k2 30.0\nc1 k3 60.0\n"
+                  "c1 k4 49.38\n")
+    res_dir = tmp_path / "results"
+    res_dir.mkdir()
+    (res_dir / "a.txt").write_text("c0 k0 5.0\nc0 k2 30.0\n")
+    (res_dir / "b.txt").write_text("c1 k3 60.0\nc0 k1 10.0\nc9 k9 1.0\n")
+    paths["gt"], paths["res_dir"] = str(gt), str(res_dir)
+    paths["res"] = str(res_dir / "b.txt")
+    meme = tmp_path / "meme.txt"
+    meme.write_text("HEADER\nc0 k1\nc0 k5\nc1 k3\nlonely\nc7 k7\n")
+    paths["meme"] = str(meme)
+    return paths
+
+
+# tool arguments ({out} is the output file), and whether the tool's result
+# is its output file or its standard output
+PREP_CASES = {
+    "protein2datapoints": (["protein2datapoints", "-d", "{prot}", "-o",
+                            "{out}", "-l", "10", "--seed", "3"], "file"),
+    "protein2datapoints_stream": (["protein2datapoints", "-d", "{prot}",
+                                   "-o", "{out}", "-l", "10", "--seed", "3",
+                                   "--stream-aa", "300"], "file"),
+    "gen_kmers": (["gen-kmers", "-d", "{prot}", "-o", "{out}", "-l", "4"],
+                  "file"),
+    "gen_kmers_stream": (["gen-kmers", "-d", "{prot}", "-o", "{out}", "-l",
+                          "4", "--stream-aa", "300"], "file"),
+    "kmer2coordinates": (["kmer2coordinates", "-i", "{db}", "-o", "{out}",
+                          "-l", "10"], "file"),
+    "shuffle_kmers": (["shuffle-kmers", "-c", "{clusters}", "-o", "{out}",
+                       "--min-size", "3", "--seed", "4", "-n", "4"], "file"),
+    "orf": (["orf", "-q", "{dna}", "-o", "{out}", "--min-len", "3"], "file"),
+    "stockholm": (["stockholm", "-i", "{stk}", "-o", "{out}", "-l", "10"],
+                  "file"),
+    "evaluate2": (["evaluate2", "-g", "{gt}", "-r", "{res_dir}"], "stdout"),
+    "evaluate2_search": (["evaluate2", "-g", "{gt}", "-r", "{res}", "-T",
+                          "35", "--weighting", "search"], "stdout"),
+    "evaluate_motifs": (["evaluate-motifs", "-m", "{meme}", "-r", "{res}"],
+                        "stdout"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREP_CASES))
+def test_prep_and_evaluation_tools_equal_jax(tmp_path, inputs, prep,
+                                             capsys, case):
+    args, what = PREP_CASES[case]
+    got, err = {}, {}
+    for name, main in (("jax", jcli.main), ("torch", cli.main)):
+        out = str(tmp_path / f"{name}.out")
+        capsys.readouterr()
+        main([a.format(out=out, **prep, **inputs) for a in args])
+        res = capsys.readouterr()
+        got[name] = open(out).read() if what == "file" else res.out
+        err[name] = res.err.replace(out, "OUT")
+    assert got["torch"] == got["jax"] and len(got["torch"]) > 10
+    assert err["torch"] == err["jax"]

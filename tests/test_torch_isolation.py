@@ -13,7 +13,7 @@ import torch
 from hsearch_tpu_torch import cli
 from hsearch_tpu_torch.cluster import centroid, greedy, postprocess
 from hsearch_tpu_torch.lsh import tuning
-from hsearch_tpu_torch.search import exact, ivf, motif
+from hsearch_tpu_torch.search import exact, ivf, motif, stream
 from hsearch_tpu_torch.utils import checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,8 +42,9 @@ def test_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert res.returncode == 0, res.stderr
-    # every module was found, lsh/ and cluster/ included
-    assert int(res.stdout.split()[-1]) >= 29
+    # every module was found: lsh/, cluster/, search/stream, utils/stats
+    # and core/{dataprep,orf,stockholm} included
+    assert int(res.stdout.split()[-1]) >= 34
 
 
 ENTRY_POINTS = {
@@ -69,6 +70,13 @@ ENTRY_POINTS = {
     "postprocess.center_distance_samples":
         lambda db: postprocess.center_distance_samples(
             np.zeros((3, 40), np.float32)),
+    "stream.build_segmented": lambda db: stream.build_segmented(
+        db, torch.Generator(), segment_points=8),
+    "stream.upload_segment": lambda db: stream.upload_segment(
+        stream.host_segment_from_arrays(
+            db.reshape(4, -1).astype(np.int8),
+            np.arange(16, dtype=np.int32).reshape(4, 4), 0, 16, 5,
+            pin=False)),
 }
 
 
@@ -89,9 +97,28 @@ def test_cli_default_device_raises_without_cuda(monkeypatch, tmp_path):
                   "-l", "10", "-o", str(tmp_path / "o.txt")])
 
 
+def test_segivf_load_raises_without_cuda(monkeypatch, tmp_path, rng):
+    db = rng.integers(0, 20, (16, 5)).astype(np.int32)
+    path = str(tmp_path / "seg.npz")
+    checkpoint.save_index(path, stream.build_segmented(
+        db, torch.Generator(), segment_points=8, block_size=4,
+        device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        checkpoint.load_index(path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["serve", "-i", path])
+    assert checkpoint.load_index(path, device="cpu").num_segments == 2
+
+
 CLI_TOOLS = {
     "motif-search-lsh": ["motif-search", "-c", "{fa}", "-o", "{out}",
                          "--engine", "lsh", "-k", "4"],
+    "motif-search-stream": ["motif-search", "-c", "{fa}", "-o", "{out}",
+                            "--engine", "stream"],
+    "index-build-ivf": ["index-build", "-o", "{out}.npz"],
+    "index-build-stream": ["index-build", "-o", "{out}.npz", "--engine",
+                           "stream"],
     "lsh-sweep": ["lsh-sweep", "-c", "{fa}"],
     "hclust2": ["hclust2", "-o", "{out}"],
     "hclust3": ["hclust3", "-o", "{out}", "--merge-radius", "5"],

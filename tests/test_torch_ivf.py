@@ -245,8 +245,15 @@ def test_build_is_seeded_and_invertible(rng):
     np.testing.assert_array_equal(
         ivf.unsort_blocks(a.order.numpy(), a.db_sorted.numpy(), 509, 10),
         db)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ivf.build_index(db, torch.Generator(), kmeans_iters=2, device="cpu")
+    # Lloyd refinement: seeded and invertible like the sampled build
+    ka = ivf.build_index(db, torch.Generator().manual_seed(1), block_size=16,
+                         kmeans_iters=2, device="cpu")
+    kb = ivf.build_index(db, torch.Generator().manual_seed(1), block_size=16,
+                         kmeans_iters=2, device="cpu")
+    assert torch.equal(ka.order, kb.order)
+    np.testing.assert_array_equal(
+        ivf.unsort_blocks(ka.order.numpy(), ka.db_sorted.numpy(), 509, 10),
+        db)
     bad = db.copy()
     bad[3, 4] = 20
     with pytest.raises(ValueError, match="amino-acid indices"):
@@ -271,3 +278,53 @@ def test_autotune_k_blocks_reaches_target(rng):
     want = exact.search_radius(db, centers[12:], 35.0, device="cpu")
     rep = evaluate.recall_from_indices(*want, got[0], got[1], 35.0)
     assert rep.recall >= 0.96
+
+
+def test_lloyd_matches_jax_kmeans_cells():
+    """Given JAX's own draw of the initial centroids, the port's Lloyd
+    iterations assign every point as hsearch_tpu's _kmeans_cells does,
+    except a point whose two nearest centroids are a near tie."""
+    rng = np.random.default_rng(11)
+    n, l, n_cells, iters = 3000, 10, 96, 3
+    pts = embedding.embed_kmers(rng.integers(0, 20, (n, l)))
+    key = jax.random.PRNGKey(5)
+    idx = np.asarray(jax.random.choice(key, n, (n_cells,),
+                                       replace=n < n_cells))
+    want = np.asarray(jivf._kmeans_cells(jnp.asarray(pts), key, n_cells,
+                                         iters))
+    got, cent = ivf._lloyd(T(pts), T(pts)[T(idx.copy())], iters,
+                           block=512)
+    got = got.numpy()
+    assert got.dtype == np.int32 and len(np.unique(got)) > n_cells // 2
+    diff = np.nonzero(got != want)[0]
+    d2 = ((pts[diff, None, :].astype(np.float64)
+           - cent.numpy()[None].astype(np.float64)) ** 2).sum(-1)
+    rows = np.arange(len(diff))
+    assert np.all(np.abs(d2[rows, want[diff]] - d2[rows, got[diff]])
+                  <= 1e-5 * d2[rows, got[diff]])
+    assert len(diff) <= n // 100
+
+
+def test_lloyd_keeps_empty_cells_and_ties_first():
+    """An empty cell keeps its centroid; equidistant centroids go to the
+    first (two identical initial centroids: the second stays empty)."""
+    pts = T(np.array([[0.0, 0.0], [0.1, 0.0], [5.0, 5.0], [5.1, 5.0]],
+                     np.float32))
+    init = T(np.array([[0.0, 0.0], [5.0, 5.0], [5.0, 5.0], [90.0, 90.0]],
+                      np.float32))
+    assert ivf._lloyd(pts, init, 0)[0].tolist() == [0, 0, 1, 1]
+    a, cent = ivf._lloyd(pts, init, 1)
+    np.testing.assert_allclose(cent.numpy(), [[0.05, 0.0], [5.05, 5.0],
+                                              [5.0, 5.0], [90.0, 90.0]],
+                               rtol=1e-6)
+    # the kept centroid (5, 5) now holds (5, 5) exactly
+    assert a.tolist() == [0, 0, 2, 1]
+
+
+def test_kmeans_build_is_lossless(rng):
+    db, centers = _family_db(rng, 2048, 16, 25)
+    idx = ivf.build_index(db, torch.Generator().manual_seed(2),
+                          block_size=16, kmeans_iters=2, device="cpu")
+    got = ivf.search(idx, centers, 35.0, k_blocks=8, max_hits=1024)
+    want = exact.search_radius(db, centers, 35.0, device="cpu")
+    assert _pairs(got) == _pairs(want) and len(want[0]) > 100

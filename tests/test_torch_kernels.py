@@ -3,7 +3,8 @@ interpret mode and the reference's own code around them, at
 tests/test_pallas.py's shapes and tolerances; the CPU dispatch of the
 wrappers; and, on a machine with a CUDA device, each kernel against its
 plain version at ragged shapes (verify also at block size 1, as the LSH
-search calls it) and the LSH search on the card against the CPU.
+search calls it), the LSH search on the card against the CPU, and the
+segmented engine's pinned, side-stream uploads.
 
 The CUDA cases need neither jax nor tests/conftest.py, so they also run on
 a GPU host without JAX:
@@ -238,10 +239,12 @@ def test_prune_kernel_ragged_on_cuda(c, b, d):
 
 
 # ragged: kb*bs not a multiple of the 512-candidate tile; rows of 200
-# bytes (byte staging) and of 800 / 160 bytes (16-byte staging)
+# bytes (byte staging) and of 800 / 160 bytes (16-byte staging); and
+# 66,000 one-block tiles, past the grid's 65,535 (two launches)
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,kb,bs,l", [(3, 37, 8, 25), (4, 70, 8, 25),
-                                       (5, 21, 32, 25), (2, 9, 16, 10)])
+                                       (5, 21, 32, 25), (2, 9, 16, 10),
+                                       (1, 66000, 512, 1)])
 def test_verify_kernel_ragged_on_cuda(c, kb, bs, l):
     dev = _cuda()
     _check_verify_on_cuda(dev, np.random.default_rng(kb), c, kb, bs, l)
@@ -324,6 +327,67 @@ int main() {
   return 0;
 }
 """
+
+
+@pytest.mark.cuda
+def test_stream_upload_on_cuda(monkeypatch):
+    """The segmented engine's uploads on the card: the host byte sets are
+    page-locked, every copy runs on a side stream, the streamed search
+    equals a search of synchronously uploaded segments, and a segment
+    uploaded on a side stream while kernels queue on the current stream
+    is bounded bitwise like a synchronous upload."""
+    from hsearch_tpu_torch.core import embedding
+    from hsearch_tpu_torch.search import ivf, stream
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    fam = rng.integers(0, 20, (512, 25))
+    db = fam[rng.integers(0, 512, 1 << 15)]
+    db = np.where(rng.random(db.shape) < 0.08,
+                  rng.integers(0, 20, db.shape), db).astype(np.int32)
+    centers = fam[:64].astype(np.int32)
+    sidx = stream.build_segmented(db, torch.Generator().manual_seed(0),
+                                  segment_points=1 << 13, device=dev)
+    assert sidx.num_segments == 4 and sidx.resident_fraction() == 0.0
+    assert all(s.pinned[0].is_pinned() and s.pinned[1].is_pinned()
+               for s in sidx.segments)
+    copies = []
+    h2d = stream._h2d
+
+    def spy(host, d):
+        copies.append((host.is_pinned(),
+                       torch.cuda.current_stream(d).cuda_stream
+                       != torch.cuda.default_stream(d).cuda_stream))
+        return h2d(host, d)
+
+    monkeypatch.setattr(stream, "_h2d", spy)
+    kw = dict(k_blocks=16, max_hits=512, center_block=64,
+              retry_overflow=False)
+    events: list = []
+    got = stream.search_segmented(sidx, centers, 35.0, stats_out={},
+                                  h2d_events=events, **kw)
+    assert copies == [(True, True)] * 8
+    torch.cuda.synchronize(dev)
+    assert [e[0] for e in events] == [0, 1, 2, 3]
+    assert all(s.elapsed_time(e) > 0 for _, s, e in events)
+    want = []
+    for seg in sidx.segments:
+        ci, ki, _ = ivf.search(stream.upload_segment(seg, dev), centers,
+                               35.0, **kw)
+        want += list(zip(ci.tolist(), (ki + seg.offset).tolist()))
+    assert set(zip(got[0].tolist(), got[1].tolist())) == set(want)
+    assert len(want) > 500
+    a = stream.upload_segment(sidx.segments[0], dev)
+    q = torch.as_tensor(embedding.embed_kmers(centers), device=dev)
+    for _ in range(50):
+        ck.sq_distance_prune(q, a.block_centroid, a.block_radius, 35.0)
+    side = torch.cuda.Stream(dev)
+    b = stream.upload_segment(sidx.segments[1], dev, stream=side)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    stream._adopt(b, torch.cuda.current_stream(dev))
+    c = stream.upload_segment(sidx.segments[1], dev)
+    torch.cuda.synchronize(dev)
+    for f in ("db_sorted", "order", "block_centroid", "block_radius"):
+        assert torch.equal(getattr(b, f), getattr(c, f))
 
 
 @pytest.mark.cuda
