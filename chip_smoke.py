@@ -1,7 +1,8 @@
 """GPU smoke run of hsearch_tpu_torch: kernels, IVF and LSH search,
-exactness, k-mer clustering, the segmented (stream) engine, CLI.
+exactness, k-mer clustering, the segmented (stream) engine, the protein
+aligner and pcluster, CLI.
 
-    python3 chip_smoke.py [--stream-n-log2 24] [--trace-out PATH]
+    python3 chip_smoke.py [--stream-n-log2 N] [--trace-out PATH]
 
 Needs one CUDA device (exits non-zero without one) and ``nvcc`` for the
 kernels, which it builds from ``hsearch_tpu_torch/csrc`` into
@@ -44,10 +45,10 @@ Phases, each of which fails the run on error:
      members within R of their head); the merge's index build timed
      alone and a profile of its search over 4096 heads;
      cluster_centroid (K=16 L=8) on a 2^18 prefix;
-  8. the segmented engine (search/stream.py) on a 2^24-row database of
+  8. the segmented engine (search/stream.py) on a 2^23-row database of
      the same family shape (generated on the card in chunks; R = 35,
      1024 family-center queries, center blocks of 1024, max_hits 512)
-     in 4 segments of 2^22 points: per-segment build seconds, host and
+     in 4 segments of 2^21 points: per-segment build seconds, host and
      device bytes; prune and verify at a segment's shape against their
      plain versions, with their times; exactness fully streamed with the
      retry on (== the exact oracle over all rows, d^2 agreeing); the kb
@@ -61,12 +62,29 @@ Phases, each of which fails the run on error:
      refinement (kmeans_iters=2) on phase 3's database beside the sampled
      build; the CLI (motif-search --engine stream == motif-search-exact,
      index-build --engine stream + serve == motif-search --engine stream).
-     ``--stream-n-log2 27`` runs it at 2^27 rows (32 segments of 2^22,
-     built from an iterator of 2^22-row chunks) instead.
+     ``--stream-n-log2 24`` runs it at 2^24 rows in 4 segments of 2^22,
+     ``--stream-n-log2 27`` at 2^27 rows (32 segments of 2^22, built
+     from an iterator of 2^22-row chunks).
+  9. the aligner and pcluster on the JAX package's examples/bench_align.py
+     corpus (families of 4 copies of a 120-residue base, 4 substitutions
+     each, seed 0): cluster_proteins at 100,000 proteins (bits 12, sigma
+     0.1, one table, default SearchParams) with seconds, proteins/s,
+     pre-groups, seed pairs extended, hits, clusters, family-pair recall
+     (gate 0.98) and the stage split; a torch.profiler trace of one
+     search_all slice over the first 2^14 proteins' groups (device busy,
+     idle share); the first four 8,192-lane batches of that slice through
+     the windowed extension on the card and on the CPU, bitwise, and the
+     same for the chunked extension on 512 proteins of 600 residues, with
+     ms per call; cluster_proteins gapped=True on a 2^14-protein corpus,
+     banded_scores on every gap-triggered window card against CPU
+     (bitwise), ms per call and the host tracebacks; cluster_proteins on
+     2^12 proteins on the card and on the CPU with the same KLSH
+     parameters (labels and every Hit field identical); the pcluster CLI.
 
 Output: free-form progress lines; ``kernels``, ``main_path``, ``lsh``,
-``cluster`` and ``stream`` lines; the nvidia-smi name/power line; one JSON
-object ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+``cluster``, ``stream`` and ``pcluster`` lines; the nvidia-smi name/power
+line; one JSON object ``{"kernels": [...]}`` and, last, ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -104,9 +122,18 @@ CENTROID_N_LOG2, MERGE_PROFILE_C = 18, 4096
 # iterator; the kb ladder doubles from its first rung until weighted
 # recall >= 0.99 (on this data it passes phase 3's 512; see PERF.md); rows
 # of the CLI's k-mer file and its queries
-STREAM_N_LOG2, SEG_LOG2, STREAM_C, STREAM_ITER_N_LOG2 = 24, 22, 1024, 25
+STREAM_N_LOG2, SEG_LOG2, STREAM_C, STREAM_ITER_N_LOG2 = 23, 22, 1024, 25
 STREAM_KB0 = 128
 STREAM_CLI_N_LOG2, STREAM_CLI_Q = 16, 8
+# phase 9: proteins of the cluster_proteins run (the JAX package's first
+# validated rung), its KLSH operating point and family-pair recall gate;
+# the corpora of the gapped run, of the card-vs-CPU run and of the CLI
+# (log2 proteins); the long-protein corpus of the chunked extension
+# (proteins, residues each); proteins the profiled search covers; and the
+# 8,192-lane batches held card against CPU
+PC_N, PC_BITS, PC_SIGMA, PC_RECALL_GATE = 100_000, 12, 0.1, 0.98
+PC_GAPPED_LOG2, PC_CROSS_LOG2, PC_CLI_LOG2 = 14, 12, 10
+PC_LONG_N, PC_LONG_LEN, PC_PROFILE_N, PC_CMP_BATCHES = 512, 600, 1 << 14, 4
 
 
 def protein_like_db(rng, n, l, family_size=64, query_n=256,
@@ -212,10 +239,11 @@ def lsh_configs():
 def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
         exact_n_log2=EXACT_N_LOG2, centroid_n_log2=CENTROID_N_LOG2,
         cli=True, stream_n_log2=STREAM_N_LOG2, stream_c=STREAM_C,
-        trace_out=None):
+        trace_out=None, pcluster_sizes=None):
     """All phases on ``device``; returns the kernel records and the
-    records of the IVF, LSH, clustering and segmented-engine phases.
-    Raises on the first failed check."""
+    records of the IVF, LSH, clustering, segmented-engine and pcluster
+    phases.  ``pcluster_sizes`` overrides run_pcluster's corpus sizes
+    (rehearsals).  Raises on the first failed check."""
     import torch
     from hsearch_tpu_torch import _device
     from hsearch_tpu_torch.core import embedding
@@ -482,6 +510,11 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
         lloyd=(db, centers, (gci, gki, gd), c_blk, main_path))
     prune_seg, verify_seg = seg_kernels
 
+    # ---- phase 9: the aligner and pcluster ---------------------------------
+    pcluster = run_pcluster(dev, cli=cli, **(pcluster_sizes or {}))
+    # neither TPU kernel lies on this path: its launches are read to show it
+    by_path["pcluster"] = pcluster["cluster"]["tpu_kernel_launches"]
+
     if dev.type == "cuda":
         need = {"ivf_search": ("sq_distance_prune", "ptable_verify"),
                 "lsh_search": ("ptable_verify",),
@@ -537,7 +570,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                      "bound_by": lsh_by, "distinct_ids": lsh_distinct},
          "stream_segment": verify_seg},
     ]
-    return kernels, main_path, lsh, cluster, stream
+    return kernels, main_path, lsh, cluster, stream, pcluster
 
 
 def run_lsh(db, centers, truth, dev):
@@ -772,10 +805,42 @@ def _intervals_union(iv):
     return total
 
 
+def _trace_summary(path, wall_us):
+    """A Chrome trace of one call: device busy (union of every kernel,
+    copy and memset interval), idle share against the call's wall, how
+    much of the host-to-device copy time lies under kernels running at the
+    same time, and the device time of the top kernels."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev_ev = [e for e in events if e.get("ph") == "X" and e.get("cat")
+              in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kern = [(e["ts"], e["ts"] + e["dur"]) for e in dev_ev
+            if e["cat"] == "kernel"]
+    h2d = [(e["ts"], e["ts"] + e["dur"]) for e in dev_ev
+           if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
+    busy = _intervals_union([(e["ts"], e["ts"] + e["dur"])
+                             for e in dev_ev])
+    h2d_total = sum(b - a for a, b in h2d)
+    # the part of each copy that some kernel covers
+    under = sum(_intervals_union([(max(a, ka), min(b, kb_))
+                                  for ka, kb_ in kern
+                                  if ka < b and kb_ > a])
+                for a, b in h2d)
+    names = {}
+    for e in dev_ev:
+        names[e["name"][:60]] = names.get(e["name"][:60], 0.0) + e["dur"]
+    top = sorted(names.items(), key=lambda x: -x[1])[:8]
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": max(0.0, 1 - busy / wall_us),
+            "kernels": len(kern), "h2d_copies": len(h2d),
+            "h2d_ms": h2d_total / 1e3,
+            "h2d_under_kernels_ms": under / 1e3,
+            "h2d_overlaps_kernels": under > 0.5 * h2d_total > 0,
+            "top_device_ms": {k: v / 1e3 for k, v in top}}
+
+
 def profile_stream(fn, dev, trace_out=None):
-    """One call under torch.profiler: wall, device busy (union of every
-    kernel, copy and memset interval), idle share, and how much of the
-    host-to-device copy time lies under kernels running at the same time.
+    """One call under torch.profiler, summarised by ``_trace_summary``.
     A measurement aid: a profiler failure is reported, not raised."""
     import torch
     if dev.type != "cuda":
@@ -791,32 +856,7 @@ def profile_stream(fn, dev, trace_out=None):
         with tempfile.TemporaryDirectory() as tmp:
             path = trace_out or os.path.join(tmp, "trace.json")
             prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-        dev_ev = [e for e in events if e.get("ph") == "X" and e.get("cat")
-                  in ("kernel", "gpu_memcpy", "gpu_memset")]
-        kern = [(e["ts"], e["ts"] + e["dur"]) for e in dev_ev
-                if e["cat"] == "kernel"]
-        h2d = [(e["ts"], e["ts"] + e["dur"]) for e in dev_ev
-               if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
-        busy = _intervals_union([(e["ts"], e["ts"] + e["dur"])
-                                 for e in dev_ev])
-        h2d_total = sum(b - a for a, b in h2d)
-        # the part of each copy that some kernel covers
-        under = sum(_intervals_union([(max(a, ka), min(b, kb_))
-                                      for ka, kb_ in kern
-                                      if ka < b and kb_ > a])
-                    for a, b in h2d)
-        names = {}
-        for e in dev_ev:
-            names[e["name"][:60]] = names.get(e["name"][:60], 0.0) + e["dur"]
-        top = sorted(names.items(), key=lambda x: -x[1])[:8]
-        return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-                "idle_share": max(0.0, 1 - busy / wall_us),
-                "h2d_copies": len(h2d), "h2d_ms": h2d_total / 1e3,
-                "h2d_under_kernels_ms": under / 1e3,
-                "h2d_overlaps_kernels": under > 0.5 * h2d_total > 0,
-                "top_device_ms": {k: v / 1e3 for k, v in top}}
+            return _trace_summary(path, wall_us)
     except Exception as e:   # measurement aid only: report, keep running
         return {"profile": f"not measured: {type(e).__name__}: {e}"}
 
@@ -1109,6 +1149,285 @@ def run_stream(dev, n_log2, n_centers, cli, trace_out, lloyd):
     return rec, launches, (prune_seg, verify_seg)
 
 
+def protein_families(n, plen=120, seed=0):
+    """The JAX package's examples/bench_align.py corpus, same numpy calls:
+    n // 4 families of 4 copies of a plen-residue base (protein i belongs
+    to family i % (n // 4)), 4 substitutions each; proteins past the last
+    whole family random.  Returns (ProteinDB, number of families)."""
+    from hsearch_tpu_torch.core import io as hio
+    rng = np.random.default_rng(seed)
+    n_fam = max(1, n // 4)
+    seqs = []
+    for i in range(n):
+        if i < n_fam * 4:
+            s = np.random.default_rng(1000 + i % n_fam).integers(
+                0, 20, plen).astype(np.int32)
+            pos = rng.choice(plen, 4, replace=False)
+            s[pos] = rng.integers(0, 20, 4)
+        else:
+            s = rng.integers(0, 20, plen).astype(np.int32)
+        seqs.append(s)
+    starts = np.concatenate([[0], np.cumsum([len(s) for s in seqs])])
+    return hio.ProteinDB(names=[f"p{i}" for i in range(n)],
+                         seq=np.concatenate(seqs).astype(np.uint8),
+                         starts=starts), n_fam
+
+
+def family_pair_recall(labels, n_fam):
+    """Fraction of within-family protein pairs in one cluster (the JAX
+    package's examples/bench_align.py metric)."""
+    lab = labels[np.arange(n_fam * 4).reshape(4, n_fam).T]
+    pairs = [(a, b) for a in range(4) for b in range(a + 1, 4)]
+    return float(sum(int((lab[:, a] == lab[:, b]).sum()) for a, b in pairs)
+                 / max(n_fam * len(pairs), 1))
+
+
+def first_table_searcher(db, pre_groups, dev, max_proteins=None):
+    """The group-partitioned ProteinSearcher that cluster_proteins builds
+    for a table from its pre-groups; with ``max_proteins``, over only the
+    first that many of its proteins (the first groups, the last one cut).
+    """
+    from hsearch_tpu_torch.align import pipeline
+    subset = np.concatenate(pre_groups)
+    group_of = np.repeat(np.arange(len(pre_groups)),
+                         [len(g) for g in pre_groups])
+    return pipeline.ProteinSearcher(
+        db, pipeline.SearchParams(), subset=subset[:max_proteins],
+        groups=group_of[:max_proteins], device=dev)
+
+
+def slice_pairs(searcher):
+    """The packed (6, n) seed pairs of the searcher's first search_all
+    slice (all of them when the default budgets hold the corpus)."""
+    from hsearch_tpu_torch.align import hostops, seed_index
+    s = searcher
+    code, _, valid10, qgrp10 = seed_index.host_codes(s.seq, s.starts)
+    qidx = np.nonzero(valid10)[0]
+    qgroups = None if s.groups is None else np.repeat(
+        s.groups.astype(np.int64), np.diff(s.starts))[qidx]
+    rows, dpos, _ = seed_index.probe_host(s._hview, code[qidx],
+                                          qgrp10[qidx], s.params.cand_max,
+                                          qgroups=qgroups)
+    six, _, _ = hostops.pair_prep(rows, dpos, qidx.astype(np.int64),
+                                  s.starts, s.ids, None,
+                                  s.params.collapse_runs)
+    return six
+
+
+def compare_extension(searcher, dev):
+    """The first PC_CMP_BATCHES batches of the searcher's first slice
+    through its extension form on ``dev`` and through the same form on
+    CPU tensors: bitwise equal.  Returns the form, lanes, and ms per
+    call of each (CUDA events on the card, the host clock on the CPU)."""
+    import torch
+    from hsearch_tpu_torch.align import extend, seed_index
+    b = searcher.params.pair_batch
+    six = slice_pairs(searcher)[:, :PC_CMP_BATCHES * b]
+    seq = torch.as_tensor(searcher.seq)
+    drop = int(searcher.cutoffs.ungap_ext_drop)
+
+    def on_cpu(x):
+        if searcher.windowed:
+            return extend.extend_pairs_windowed(
+                seq, seq, x, drop, seed_index.SEED_LEN,
+                win_pre=searcher._win, win_post=searcher._win)
+        return extend.extend_pairs_packed(seq, seq, x, drop,
+                                          seed_index.SEED_LEN)
+
+    cpu_s = []
+    for lo in range(0, six.shape[1], b):
+        part = torch.as_tensor(six[:, lo:lo + b])
+        got = searcher.extend_batch(part.to(dev)).cpu()
+        t0 = time.perf_counter()
+        want = on_cpu(part)
+        cpu_s.append(time.perf_counter() - t0)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"extension ({'windowed' if searcher.windowed else 'chunked'}"
+                f") on {dev} differs from the CPU at lanes {lo}..{lo + b}: "
+                f"{int((got != want).any(dim=0).sum())} lanes")
+    first = torch.as_tensor(six[:, :b], device=dev)
+    return {"form": "windowed" if searcher.windowed else "chunked",
+            "window": searcher._win if searcher.windowed else None,
+            "lanes": int(six.shape[1]), "bitwise": True,
+            "ms_per_call": _time_ms(lambda: searcher.extend_batch(first),
+                                    dev, reps=5),
+            "lanes_per_call": int(first.shape[1]),
+            "cpu_ms_per_call": 1e3 * float(np.mean(cpu_s))}
+
+
+def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
+                 cross_log2=PC_CROSS_LOG2, long_n=PC_LONG_N,
+                 profile_n=PC_PROFILE_N, cli=True):
+    """Phase 9: the aligner and pcluster.  Returns the record."""
+    import dataclasses
+
+    import torch
+    from hsearch_tpu_torch.align import gapped_device, pipeline
+    from hsearch_tpu_torch.cluster import pcluster
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+    from hsearch_tpu_torch.utils import profiling
+    rec: dict = {}
+    kw = dict(bits=PC_BITS, sigma=PC_SIGMA, tables=1)
+
+    # cluster_proteins at the validated rung
+    t0 = time.perf_counter()
+    db, n_fam = protein_families(n)
+    rec["corpus_s"] = time.perf_counter() - t0
+    profiling.reset()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res = pcluster.cluster_proteins(db, torch.Generator().manual_seed(0),
+                                    device=dev, **kw)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    recall = family_pair_recall(res.labels, n_fam)
+    rec["cluster"] = {
+        "proteins": n, "residues": int(db.starts[-1]), "seconds": secs,
+        "proteins_per_s": n / secs, "pre_groups": len(res.pre_groups),
+        "pairs_extended": res.pairs_extended, "hits": len(res.hits),
+        "clusters": int(len(np.unique(res.labels))),
+        "family_pair_recall": recall,
+        "stages_s": {k: v["total_s"] for k, v in profiling.report().items()},
+        "tpu_kernel_launches": ck.launch_counts()}
+    print(f"phase9 cluster_proteins: {json.dumps(rec['cluster'])}",
+          flush=True)
+    if recall < PC_RECALL_GATE:
+        raise AssertionError(f"family-pair recall {recall} < "
+                             f"{PC_RECALL_GATE}")
+
+    # one search_all slice over the first proteins of the table's groups,
+    # traced; and the extension of its first batches on the card against
+    # the CPU
+    ps = first_table_searcher(db, res.pre_groups, dev, profile_n)
+    del res
+    rec["profile"] = {"proteins": len(ps.ids)}
+    if dev.type == "cuda":
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            with profiling.device_trace(tmp) as path:
+                ps.search_all()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            rec["profile"].update(_trace_summary(path, wall_us))
+    print(f"phase9 one search_all slice traced: "
+          f"{json.dumps(rec['profile'])}", flush=True)
+    rec["extend_windowed"] = compare_extension(ps, dev)
+    del ps, db
+    long_db, _ = protein_families(long_n, plen=PC_LONG_LEN, seed=1)
+    rec["extend_chunked"] = compare_extension(
+        pipeline.ProteinSearcher(long_db, device=dev), dev)
+    print(f"phase9 extension card vs CPU: windowed "
+          f"{json.dumps(rec['extend_windowed'])}; chunked "
+          f"{json.dumps(rec['extend_chunked'])}", flush=True)
+
+    # the gapped path
+    gdb, _ = protein_families(1 << gapped_log2)
+    t0 = time.perf_counter()
+    plain = pcluster.cluster_proteins(gdb, torch.Generator().manual_seed(0),
+                                      device=dev, **kw)
+    plain_s = time.perf_counter() - t0
+    profiling.reset()
+    t0 = time.perf_counter()
+    gapped = pcluster.cluster_proteins(
+        gdb, torch.Generator().manual_seed(0), gapped=True, device=dev, **kw)
+    gapped_s = time.perf_counter() - t0
+    gs = first_table_searcher(gdb, plain.pre_groups, dev)
+    by_query: dict = {}
+    for h in plain.hits:
+        by_query.setdefault(h.query, []).append(h)
+    queries = [(np.asarray(gdb.protein(q)), qh)
+               for q, qh in by_query.items()]
+    where, _, q, ql, d, dl = pipeline.gapped_windows(gs, queries)
+    cut = gs.cutoffs
+    sub = torch.as_tensor(pipeline._sub21())
+    bargs = (cut.gap_open, cut.gap_extend, int(round(cut.gap_ext_drop)), 32)
+    on_dev = [torch.as_tensor(x, device=dev) for x in (q, ql, d, dl)]
+    got = gapped_device.banded_scores(*on_dev, sub.to(dev), *bargs)
+    want = gapped_device.banded_scores(
+        *(torch.as_tensor(x) for x in (q, ql, d, dl)), sub, *bargs)
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError("banded_scores on the card differs from the "
+                             "CPU")
+    tracebacks = sum(int(s_) > queries[qi][1][i].score
+                     for (qi, i), s_ in zip(where, got[0].cpu().tolist()))
+    rows = [dataclasses.astuple(h) for h in gapped.hits]
+    rec["gapped"] = {
+        "proteins": 1 << gapped_log2, "ungapped_s": plain_s,
+        "gapped_s": gapped_s,
+        "refine_s": profiling.report()["align/gapped"]["total_s"],
+        "windows": len(where), "window_shape": [int(q.shape[1]),
+                                                int(d.shape[1])],
+        "banded_bitwise": True,
+        "banded_ms_per_call": _time_ms(
+            lambda: gapped_device.banded_scores(*on_dev, sub.to(dev),
+                                                *bargs), dev, reps=3),
+        "host_tracebacks": tracebacks,
+        "hits_changed": sum(a != dataclasses.astuple(b)
+                            for a, b in zip(rows, plain.hits)),
+        "labels_equal_ungapped": bool(np.array_equal(gapped.labels,
+                                                     plain.labels))}
+    print(f"phase9 gapped: {json.dumps(rec['gapped'])}", flush=True)
+    del gs, queries, q, d, on_dev, got, want
+
+    # the same clustering on the card and on the CPU
+    cdb, _ = protein_families(1 << cross_log2)
+    kp = [pcluster.klsh_init(torch.Generator().manual_seed(4), bits=PC_BITS,
+                             sigma=PC_SIGMA)]
+    outs = [pcluster.cluster_proteins(cdb, None, klsh_params=kp, device=d_,
+                                      **kw) for d_ in (dev, "cpu")]
+    if not (np.array_equal(outs[0].labels, outs[1].labels)
+            and [dataclasses.astuple(h) for h in outs[0].hits]
+            == [dataclasses.astuple(h) for h in outs[1].hits]):
+        raise AssertionError(f"cluster_proteins on {dev} differs from the "
+                             "CPU")
+    rec["card_vs_cpu"] = {"proteins": 1 << cross_log2,
+                          "hits": len(outs[0].hits), "identical": True}
+    print(f"phase9 cluster_proteins on {dev} == CPU at "
+          f"{1 << cross_log2} proteins ({len(outs[0].hits)} hits, every "
+          "field)", flush=True)
+    if cli:
+        rec["cli"] = run_pcluster_cli(protein_families(1 << PC_CLI_LOG2)[0],
+                                      dev)
+    return rec
+
+
+def run_pcluster_cli(db, dev):
+    """python -m hsearch_tpu_torch pcluster on a small FASTA in a child
+    process: .m8 rows of 12 fields, an .aln block per hit up to
+    --max-aln, and a .clusters partition of every protein."""
+    from hsearch_tpu_torch.core import io as hio
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, out = os.path.join(tmp, "prot.fasta"), os.path.join(tmp, "pc")
+        hio.write_fasta(fa, db.names, [db.protein(i)
+                                       for i in range(db.num_proteins)])
+        subprocess.run([sys.executable, "-m", "hsearch_tpu_torch",
+                        "pcluster", "-d", fa, "-o", out, "--bits",
+                        str(PC_BITS), "--sigma", str(PC_SIGMA), "--device",
+                        dev.type], check=True, env=env, cwd=tmp,
+                       timeout=300)
+        with open(out + ".m8") as f:
+            m8 = [ln.rstrip("\n").split("\t") for ln in f]
+        with open(out + ".aln") as f:
+            aln = f.read()
+        clusters = hio.read_clusters(out + ".clusters")
+    bad = [r for r in m8 if len(r) != 12 or r[0] not in db.names
+           or r[1] not in db.names]
+    members = sorted(m for c in clusters for m in c)
+    if bad or not m8 or aln.count(" vs ") != min(len(m8), 100) \
+            or members != sorted(db.names):
+        raise AssertionError(f"pcluster CLI files malformed: {len(m8)} m8 "
+                             f"rows ({len(bad)} bad), {aln.count(' vs ')} "
+                             f"aln blocks, {len(members)} cluster members "
+                             f"for {db.num_proteins} proteins")
+    print(f"phase9 CLI: pcluster wrote {len(m8)} m8 rows, "
+          f"{aln.count(' vs ')} aln blocks, {len(clusters)} clusters over "
+          f"{len(members)} proteins", flush=True)
+    return {"proteins": db.num_proteins, "m8_rows": len(m8),
+            "clusters": len(clusters)}
+
+
 def _write_kmers_fasta(path, prefix, rows):
     aa = "ARNDCQEGHILKMFPSTWYV"
     with open(path, "w") as f:
@@ -1293,13 +1612,14 @@ def main(argv=None) -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
           f" x{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    kernels, main_path, lsh, cluster, stream = run(
+    kernels, main_path, lsh, cluster, stream, pcluster = run(
         "cuda", stream_n_log2=args.stream_n_log2, trace_out=args.trace_out)
     print("kernels " + json.dumps(kernels))
     print("main_path " + json.dumps(main_path))
     print("lsh " + json.dumps(lsh))
     print("cluster " + json.dumps(cluster))
     print("stream " + json.dumps(stream))
+    print("pcluster " + json.dumps(pcluster))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))

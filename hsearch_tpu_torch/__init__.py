@@ -13,13 +13,19 @@ Each module keeps the name and place of its counterpart in ``hsearch_tpu``
   search/      exact oracle, block-pruned IVF engine (with optional Lloyd
                refinement), the segmented engine for databases larger than
                the card's memory, LSH motif search, recall evaluation
+  align/       the protein aligner: murphy10 seed index, batched
+               seed-extend (window-dense and chunked), the banded gapped
+               scorer, Karlin-Altschul statistics, the search pipeline
+               with m8/aln output, and its host passes in numpy
   cluster/     greedy (hclust2/3) and centroid (hclust) k-mer clustering,
-               the center-distance merge, post-processing, union-find
+               the center-distance merge, post-processing, union-find,
+               whole-protein clustering (pcluster: KLSH pre-groups)
   utils/       index checkpointing (the ``ivf``, ``motif`` and ``segivf``
-               .npz kinds) and index statistics
+               .npz kinds), index statistics, phase timing and tracing
   cli          ``python -m hsearch_tpu_torch <tool>``: protein2datapoints,
                motif-search, motif-search-exact, index-build, serve,
-               lsh-sweep, hclust2/3, hclust, postprocess, evaluate2,
+               lsh-sweep, hclust2/3, hclust, pcluster, postprocess,
+               evaluate2,
                evaluate-motifs, shuffle-kmers, kmer2coordinates,
                gen-kmers, orf, stockholm
 

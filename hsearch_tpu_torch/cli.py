@@ -11,6 +11,8 @@
     hclust2 / hclust3    greedy k-mer clustering (one implementation), with
                          the optional center-distance merge
     hclust               centroid-merging k-mer clustering
+    pcluster             whole-protein clustering: KLSH pre-groups, seed-
+                         extend alignment (.m8/.aln), union-find clusters
     postprocess          cluster centers, MEME file, center distances
     evaluate2            weighted recall of result files against a truth
     evaluate-motifs      MEME-vs-search motif protein-set comparison
@@ -39,7 +41,7 @@ import numpy as np
 
 # tools of the JAX package whose modules are not ported yet, with the
 # ROADMAP item that ports them
-_NOT_PORTED = {"pcluster": "ROADMAP A.8", "fit-embedding": "ROADMAP A.9"}
+_NOT_PORTED = {"fit-embedding": "ROADMAP A.9"}
 
 
 def _read_kmer_input(path: str, k: int):
@@ -365,6 +367,41 @@ def cmd_hclust(args):
     clusters = [[strs[int(i)] for i in grp] for grp in groups]
     hio.write_clusters(args.output, clusters, style="hclust")
     print(f"[{len(clusters)} clusters -> {args.output}]", file=sys.stderr)
+
+
+def cmd_pcluster(args):
+    """KLSH pre-groups -> group-partitioned seed-extend alignment (with
+    --gapped, refinement under the same group statistics) -> union-find:
+    ``<out>.m8``, ``<out>.aln`` (the first --max-aln hits) and
+    ``<out>.clusters``."""
+    import torch
+
+    from .align import pipeline as apipe
+    from .cluster import pcluster
+    from .core import io as hio
+    if any(v is not None for v in (args.dist_nproc, args.dist_pid,
+                                   args.dist_coordinator)):
+        raise SystemExit("pcluster: --dist-nproc/--dist-pid/"
+                         "--dist-coordinator (distributed clustering) are "
+                         "not yet ported (ROADMAP A.10)")
+    if args.threads:
+        torch.set_num_threads(args.threads)
+    db = hio.read_fasta(args.database, seed=args.seed)
+    params = apipe.SearchParams(evalue_threshold=args.evalue,
+                                max_aln_per_query=args.max_aln,
+                                max_m8_per_query=args.max_hit)
+    res = pcluster.cluster_proteins(
+        db, torch.Generator().manual_seed(args.seed), params,
+        cluster_evalue=args.cluster_evalue, tables=args.tables,
+        bits=args.bits, sigma=args.sigma, gapped=args.gapped,
+        device=args.device)
+    apipe.write_m8(args.output + ".m8", res.hits, db.names, db.names)
+    apipe.write_aln(args.output + ".aln", res.hits[:args.max_aln],
+                    db.names, db.names)
+    clusters = [[db.names[int(i)] for i in g] for g in res.groups()]
+    hio.write_clusters(args.output + ".clusters", clusters, style="hclust2")
+    print(f"[{len(clusters)} clusters, {len(res.hits)} hits -> "
+          f"{args.output}.*]", file=sys.stderr)
 
 
 def cmd_postprocess(args):
@@ -739,6 +776,37 @@ def build_parser() -> argparse.ArgumentParser:
                                 "(over-cap counts are reported)")
         device_flag(q)
         q.set_defaults(func=func)
+
+    q = sub.add_parser("pcluster")
+    q.add_argument("-d", "--database", required=True)
+    q.add_argument("-o", "--output", required=True)
+    q.add_argument("-e", "--evalue", type=float, default=10.0)
+    q.add_argument("--cluster-evalue", type=float, default=1e-3)
+    q.add_argument("--max-aln", type=int, default=100)
+    q.add_argument("--max-hit", type=int, default=500)
+    q.add_argument("--tables", type=int, default=1)
+    q.add_argument("--bits", type=int, default=16,
+                   help="KLSH code width (reference: 16, pcluster.cpp:14)")
+    q.add_argument("--sigma", type=float, default=0.2,
+                   help="KLSH kernel bandwidth (reference: 0.2, "
+                        "pcluster.cpp:15); sigma, not bits, is the recall "
+                        "knob (bits=12 sigma=0.1 at tables=1 is the "
+                        "measured operating point)")
+    q.add_argument("--gapped", action="store_true",
+                   help="re-align strong hits with the banded gapped "
+                        "aligner (affine gaps + traceback)")
+    q.add_argument("--seed", type=int, default=0)
+    q.add_argument("--dist-nproc", type=int, default=None,
+                   help="distributed clustering (not yet ported)")
+    q.add_argument("--dist-pid", type=int, default=None,
+                   help="distributed clustering (not yet ported)")
+    q.add_argument("--dist-coordinator", default=None,
+                   help="distributed clustering (not yet ported)")
+    q.add_argument("-t", "--threads", type=int, default=None,
+                   help="torch host threads for this process (default: "
+                        "torch's)")
+    device_flag(q)
+    q.set_defaults(func=cmd_pcluster)
 
     q = sub.add_parser("postprocess")
     q.add_argument("-c", "--clusters", required=True)

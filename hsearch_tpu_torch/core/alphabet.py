@@ -90,3 +90,24 @@ def randomize_unknown_at(idx: np.ndarray, seed: int,
         z = z ^ (z >> np.uint64(31))
     idx[bad] = ((z >> np.uint64(8)) % np.uint64(20)).astype(np.uint8)
     return idx
+
+
+# 8-group alphabet of the pcluster pre-clustering 3-mer histogram
+# ([A S T][R K E D Q][N H][C][G][I V L M][F Y W][P], util.hpp:101-105).
+# Canonical order:  A  R  N  D  C  Q  E  G  H  I  L  K  M  F  P  S  T  W  Y  V
+HIST8 = np.array([0, 1, 2, 1, 3, 1, 1, 4, 2, 5, 5, 1, 5, 6, 7, 0, 0, 6, 6, 5],
+                 dtype=np.int8)
+HIST8_SIZE = 8
+HASHLEN = 3  # 3-mers -> 8**3 = 512 features (pcluster util.hpp:92)
+
+
+def reduced_kmer_ids(idx: np.ndarray, k: int = HASHLEN,
+                     alphabet: np.ndarray = HIST8,
+                     base: int = HIST8_SIZE) -> np.ndarray:
+    """All k-mer feature ids of a protein under a reduced alphabet:
+    sum_i group(aa_i) * base**i (``Kmer2Integer``, pcluster
+    util.hpp:244-250, little-endian digit order)."""
+    groups = alphabet[np.asarray(idx)]
+    wins = kmer_view(groups, k)
+    weights = base ** np.arange(k)
+    return wins.astype(np.int64) @ weights

@@ -125,11 +125,71 @@ def test_no_retry_autotune(tmp_path, inputs, capsys):
     assert got <= truth and len(got) >= 0.99 * len(truth)
 
 
-@pytest.mark.parametrize("tool,item", [("pcluster", "A.8"),
-                                       ("fit-embedding", "A.9")])
+@pytest.mark.parametrize("tool,item", [("fit-embedding", "A.9")])
 def test_unported_tools_exit_clearly(tmp_path, inputs, tool, item):
     with pytest.raises(SystemExit, match=f"not yet ported.*ROADMAP {item}"):
         cli.main([tool, "-d", inputs["db"], "-o", str(tmp_path / "x")])
+
+
+# ---- pcluster -----------------------------------------------------------------
+
+_HIST8 = np.array([0, 1, 2, 1, 3, 1, 1, 4, 2, 5, 5, 1, 5, 6, 7, 0, 0, 6, 6, 5])
+
+
+@pytest.fixture
+def protein_families(tmp_path):
+    """Four families of 2-4 identical proteins, family f drawn from the
+    residues of two 8-group histogram classes of its own (f and f + 3), so
+    every family's 3-mer histogram is far from the others'.  With these
+    numpy draws both packages' default KLSH draws (--seed 0) form the same
+    pre-groups in the same order, which the test asserts first."""
+    rng = np.random.default_rng(17)
+    path = str(tmp_path / "prot.fasta")
+    with open(path, "w") as f:
+        k = 0
+        for fam in range(4):
+            allowed = np.nonzero(np.isin(_HIST8, [fam, (fam + 3) % 8]))[0]
+            base = rng.choice(allowed, int(rng.integers(80, 160)))
+            for _ in range(int(rng.integers(2, 5))):
+                f.write(f">f{fam}_{k} x\n{''.join(AA[i] for i in base)}\n")
+                k += 1
+    return path
+
+
+@pytest.mark.parametrize("extra", [[], ["--gapped"]])
+def test_pcluster_files_equal_jax(tmp_path, protein_families, extra):
+    import jax
+    import torch
+
+    from hsearch_tpu.cluster import pcluster as jpc
+    from hsearch_tpu_torch.cluster import pcluster as tpc
+    db = jio.read_fasta(protein_families, seed=0)
+    jcodes = jpc.klsh_codes_all(db, [jpc.klsh_init(
+        jax.random.split(jax.random.PRNGKey(0), 1)[0])])[0]
+    tcodes = tpc.klsh_codes_all(db, [tpc.klsh_init(
+        torch.Generator().manual_seed(0))], device="cpu")[0]
+    groups = [g.tolist() for g in jpc.table_groups(jcodes, set())]
+    assert groups == [g.tolist() for g in tpc.table_groups(tcodes, set())]
+    assert len(groups) == 4
+    outs = {}
+    for name, main, dev in (("jax", jcli.main, []),
+                            ("torch", cli.main, ["--device", "cpu"])):
+        out = str(tmp_path / name)
+        main(["pcluster", "-d", protein_families, "-o", out, *extra, *dev])
+        outs[name] = [open(out + ext).read()
+                      for ext in (".m8", ".aln", ".clusters")]
+    assert outs["torch"] == outs["jax"]
+    m8, aln, clusters = outs["torch"]
+    assert len(m8.splitlines()) > 30
+    assert aln.count(" vs ") == len(m8.splitlines())
+    assert clusters.count("#clusterid") == 4
+
+
+def test_pcluster_distributed_exits_clearly(tmp_path, protein_families):
+    with pytest.raises(SystemExit, match="not yet ported.*ROADMAP A.10"):
+        cli.main(["pcluster", "-d", protein_families, "-o",
+                  str(tmp_path / "x"), "--dist-nproc", "2", "--device",
+                  "cpu"])
 
 
 

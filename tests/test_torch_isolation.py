@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from hsearch_tpu_torch import cli
-from hsearch_tpu_torch.cluster import centroid, greedy, postprocess
+from hsearch_tpu_torch.align import pipeline
+from hsearch_tpu_torch.cluster import centroid, greedy, pcluster, postprocess
+from hsearch_tpu_torch.core import io as tio
 from hsearch_tpu_torch.lsh import tuning
 from hsearch_tpu_torch.search import exact, ivf, motif, stream
 from hsearch_tpu_torch.utils import checkpoint
@@ -42,9 +44,17 @@ def test_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert res.returncode == 0, res.stderr
-    # every module was found: lsh/, cluster/, search/stream, utils/stats
-    # and core/{dataprep,orf,stockholm} included
-    assert int(res.stdout.split()[-1]) >= 34
+    # every module was found: lsh/, cluster/ (pcluster included),
+    # search/stream, utils/{stats,profiling}, core/{dataprep,orf,stockholm}
+    # and align/ (reduced, blast_stat, hostops, seed_index, extend,
+    # gapped_device, pipeline)
+    assert int(res.stdout.split()[-1]) >= 44
+
+
+def _proteins(db):
+    return tio.ProteinDB(names=[f"p{i}" for i in range(len(db))],
+                         seq=db.reshape(-1).astype(np.uint8),
+                         starts=np.arange(len(db) + 1) * db.shape[1])
 
 
 ENTRY_POINTS = {
@@ -70,6 +80,12 @@ ENTRY_POINTS = {
     "postprocess.center_distance_samples":
         lambda db: postprocess.center_distance_samples(
             np.zeros((3, 40), np.float32)),
+    "pipeline.ProteinSearcher": lambda db: pipeline.ProteinSearcher(
+        _proteins(db)),
+    "pcluster.cluster_proteins": lambda db: pcluster.cluster_proteins(
+        _proteins(db), torch.Generator()),
+    "pcluster.klsh_codes_all": lambda db: pcluster.klsh_codes_all(
+        _proteins(db), [pcluster.klsh_init(torch.Generator())]),
     "stream.build_segmented": lambda db: stream.build_segmented(
         db, torch.Generator(), segment_points=8),
     "stream.upload_segment": lambda db: stream.upload_segment(
@@ -135,3 +151,11 @@ def test_new_cli_tools_raise_without_cuda(monkeypatch, tmp_path, tool):
             for a in CLI_TOOLS[tool]]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main([*args, "-d", str(fa), "-l", "10"])
+
+
+def test_pcluster_cli_raises_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fa = tmp_path / "p.fasta"
+    fa.write_text(">a\nARNDCQEGHILKMFPSTWYV\n>b\nARNDCQEGHILKMFPSTWYA\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["pcluster", "-d", str(fa), "-o", str(tmp_path / "o")])

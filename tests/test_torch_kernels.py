@@ -3,8 +3,9 @@ interpret mode and the reference's own code around them, at
 tests/test_pallas.py's shapes and tolerances; the CPU dispatch of the
 wrappers; and, on a machine with a CUDA device, each kernel against its
 plain version at ragged shapes (verify also at block size 1, as the LSH
-search calls it), the LSH search on the card against the CPU, and the
-segmented engine's pinned, side-stream uploads.
+search calls it), the LSH search on the card against the CPU, the
+segmented engine's pinned, side-stream uploads, and pcluster (the device
+probe, both extension forms and the banded scorer) against the CPU.
 
 The CUDA cases need neither jax nor tests/conftest.py, so they also run on
 a GPU host without JAX:
@@ -327,6 +328,49 @@ int main() {
   return 0;
 }
 """
+
+
+@pytest.mark.cuda
+def test_pcluster_on_cuda_matches_cpu():
+    """cluster_proteins with gapped refinement on the card (the device
+    probe and pair preparation, the windowed extension, banded_scores)
+    equals the CPU run in labels and every Hit field; a searcher over
+    proteins longer than 512 residues (the chunked extension) too."""
+    import dataclasses
+
+    from hsearch_tpu_torch.align import pipeline
+    from hsearch_tpu_torch.cluster import pcluster
+    from hsearch_tpu_torch.core import io as tio
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    seqs = []
+    for f in range(40):
+        base = rng.integers(0, 20, 120)
+        for m in range(4):
+            s = base.copy()
+            s[rng.choice(120, 4, replace=False)] = rng.integers(0, 20, 4)
+            seqs.append(np.delete(s, [50, 51, 52]) if m == 2 else s)
+    long = np.tile(seqs[0], 6)
+    seqs += [long, long.copy()]
+    starts = np.concatenate([[0], np.cumsum([len(s) for s in seqs])])
+    db = tio.ProteinDB(names=[f"p{i}" for i in range(len(seqs))],
+                       seq=np.concatenate(seqs).astype(np.uint8),
+                       starts=starts)
+    kp = [pcluster.klsh_init(torch.Generator().manual_seed(1), bits=12,
+                             sigma=0.1)]
+    got, want = (pcluster.cluster_proteins(db, None, klsh_params=kp,
+                                           gapped=True, bits=12, sigma=0.1,
+                                           device=d) for d in (dev, "cpu"))
+    assert np.array_equal(got.labels, want.labels)
+    rows = [dataclasses.astuple(h) for h in got.hits]
+    assert rows == [dataclasses.astuple(h) for h in want.hits]
+    assert any(h.gap_open for h in got.hits) and len(rows) > 400
+    sub = np.arange(150, len(seqs))
+    gs, cs = (pipeline.ProteinSearcher(db, subset=sub, device=d)
+              for d in (dev, "cpu"))
+    assert not gs.windowed
+    assert [dataclasses.astuple(h) for h in gs.search_all()] == \
+        [dataclasses.astuple(h) for h in cs.search_all()]
 
 
 @pytest.mark.cuda
