@@ -1,6 +1,6 @@
 """GPU smoke run of hsearch_tpu_torch: kernels, IVF and LSH search,
 exactness, k-mer clustering, the segmented (stream) engine, the protein
-aligner and pcluster, CLI.
+aligner and pcluster, the sharded, multi-process and training paths, CLI.
 
     python3 chip_smoke.py [--stream-n-log2 N] [--trace-out PATH]
 
@@ -12,7 +12,9 @@ Phases, each of which fails the run on error:
   1. environment: torch/CUDA versions, the card's name and power limit,
      the kernel build;
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (real index data) and at ragged small shapes:
+     main path's shapes (real index data), at ragged small shapes and,
+     for prune, past one grid's 65,535 block tiles (C=64, D=8,
+     B=8,388,608: two launches):
      prune's keys within the stated tolerance and flip rule, its group
      minima and alive counts exactly those of its own keys; verify's
      d2m and n_hits bitwise, at the IVF search's block size 32 and at the
@@ -79,12 +81,28 @@ Phases, each of which fails the run on error:
      banded_scores on every gap-triggered window card against CPU
      (bitwise), ms per call and the host tracebacks; cluster_proteins on
      2^12 proteins on the card and on the CPU with the same KLSH
-     parameters (labels and every Hit field identical); the pcluster CLI.
+     parameters (labels and every Hit field identical); the pcluster CLI;
+     the corpus's group-partitioned seed index through a ``seed``
+     checkpoint (save and load seconds, arrays and probes unchanged).
+ 10. sharded, multi-process and training (parallel/): the sharded IVF
+     search over 4 db shards on the one card on phase 3's database and
+     centers (per-shard kb ladder from 128 to weighted recall >= 0.99, ms
+     per call, the launches of both kernels); sharded exactness at
+     k_blocks = blocks_per_shard on phase 4's set (== the oracle); the
+     sharded LSH at the tuned point (256 centers) == the single-device
+     engine with the same parameters; exact_topk (2^16 x 256, k = 16) ==
+     the exact oracle; a world-of-one NCCL group through
+     multihost.initialize whose search_ivf equals the single-process
+     sharded one, then torn down; fit_embedding at the CLI's defaults on
+     the card (under 1.1x the shipped table's mean distance error, within
+     1e-3 of the CPU run); the mesh train step on the 4 logical shards ==
+     one device to 1e-5; topk_agreement (length 8, k 1000, 100 queries)
+     card == CPU.
 
 Output: free-form progress lines; ``kernels``, ``main_path``, ``lsh``,
-``cluster``, ``stream`` and ``pcluster`` lines; the nvidia-smi name/power
-line; one JSON object ``{"kernels": [...]}`` and, last, ``{"ok": true,
-"device": {...}}``.
+``cluster``, ``stream``, ``pcluster`` and ``sharded`` lines; the
+nvidia-smi name/power line; one JSON object ``{"kernels": [...]}`` and,
+last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -134,6 +152,15 @@ STREAM_CLI_N_LOG2, STREAM_CLI_Q = 16, 8
 PC_N, PC_BITS, PC_SIGMA, PC_RECALL_GATE = 100_000, 12, 0.1, 0.98
 PC_GAPPED_LOG2, PC_CROSS_LOG2, PC_CLI_LOG2 = 14, 12, 10
 PC_LONG_N, PC_LONG_LEN, PC_PROFILE_N, PC_CMP_BATCHES = 512, 600, 1 << 14, 4
+# phase 2: the prune case past one grid's 65,535 block tiles (C, D, B)
+PRUNE_PAST_GRID = (64, 8, 8_388_608)
+# phase 10: db shards on the one card, the per-shard kb ladder, the
+# exact_topk shape (log2 rows, centers, k), fit_embedding at the CLI's
+# defaults, and topk_agreement's (length, k, queries)
+SH_DB, SH_KB_LADDER = 4, (128, 256, 512, 1024)
+SH_TOPK = (16, 256, 16)
+FIT = dict(dim=8, steps=2000, batch=4096, kmer_len=1, lr=1e-1, seed=0)
+AGREE = (8, 1000, 100)
 
 
 def protein_like_db(rng, n, l, family_size=64, query_n=256,
@@ -208,6 +235,31 @@ def check_verify(ck, *args):
                                           ck.ptable_verify_plain(*args))
 
 
+def check_prune_past_grid(ck, dev, gen):
+    """Prune at PRUNE_PAST_GRID (B 128 blocks past the 65,535 block tiles
+    one grid holds: two launches) against its plain version, with r about
+    the median distance; the second grid's keys must hold live blocks.
+    A 16x smaller B on the CPU (rehearsals)."""
+    import torch
+    from hsearch_tpu_torch.ops import distance
+    c, d, b = PRUNE_PAST_GRID
+    if dev.type != "cuda":
+        b //= 16
+    q = torch.randn(c, d, generator=gen).mul(10).to(dev)
+    cent = torch.randn(b, d, generator=gen).mul(10).to(dev)
+    rad = torch.rand(b, generator=gen).mul(5).to(dev)
+    r = float(torch.sqrt(distance.sq_distance_matrix(q, cent[:65536]))
+              .median()) - 2.5
+    res = check_prune(ck, q, cent, rad, r)
+    key = ck.sq_distance_prune(q, cent, rad, r)[0]
+    first = ck.MAX_GRID_Y * ck.PRUNE_TILE
+    res["launch_ranges"] = ck.prune_launch_ranges(b)
+    res["second_grid_live"] = int(torch.isfinite(key[:, first:b]).sum())
+    if dev.type == "cuda":
+        res["ok"] = res["ok"] and res["second_grid_live"] > 0
+    return res
+
+
 def verify_small_inputs(rng, dev, c, kb, bs, l):
     """ops/kernel_checks.verify_inputs at a ragged shape, on ``dev``."""
     import torch
@@ -239,10 +291,11 @@ def lsh_configs():
 def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
         exact_n_log2=EXACT_N_LOG2, centroid_n_log2=CENTROID_N_LOG2,
         cli=True, stream_n_log2=STREAM_N_LOG2, stream_c=STREAM_C,
-        trace_out=None, pcluster_sizes=None):
+        trace_out=None, pcluster_sizes=None, sharded_sizes=None):
     """All phases on ``device``; returns the kernel records and the
-    records of the IVF, LSH, clustering, segmented-engine and pcluster
-    phases.  ``pcluster_sizes`` overrides run_pcluster's corpus sizes
+    records of the IVF, LSH, clustering, segmented-engine, pcluster and
+    sharded phases.  ``pcluster_sizes`` and ``sharded_sizes`` override
+    run_pcluster's corpus sizes and run_sharded's ``fit`` / ``agree``
     (rehearsals).  Raises on the first failed check."""
     import torch
     from hsearch_tpu_torch import _device
@@ -286,6 +339,9 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     print(f"phase2 prune bench {tuple(q_emb.shape)}x"
           f"{tuple(cent2.shape)}: {prune_bench}", flush=True)
     print(f"phase2 prune small (200,80)x(300,80): {prune_small}", flush=True)
+    prune_past = check_prune_past_grid(ck, dev, gen)
+    print(f"phase2 prune past the grid limit C,D,B={PRUNE_PAST_GRID}: "
+          f"{prune_past}", flush=True)
 
     # verify at the main path's first rung: the real select of kb=128
     kb0 = min(KB_LADDER[0], idx2.num_blocks)
@@ -345,6 +401,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
           flush=True)
     for name, res in (("prune bench", prune_bench),
                       ("prune small", prune_small),
+                      ("prune past the grid limit", prune_past),
                       ("verify bench", verify_bench),
                       ("verify small", verify_small),
                       ("verify small 16-byte", verify_small16),
@@ -515,11 +572,18 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     # neither TPU kernel lies on this path: its launches are read to show it
     by_path["pcluster"] = pcluster["cluster"]["tpu_kernel_launches"]
 
+    # ---- phase 10: sharded, multi-process and training -----------------
+    sharded_rec, sh_launches = run_sharded(
+        dev, db, centers, (gci, gki, gd), c_blk, **(sharded_sizes or {}))
+    by_path.update(sh_launches)
+
     if dev.type == "cuda":
         need = {"ivf_search": ("sq_distance_prune", "ptable_verify"),
                 "lsh_search": ("ptable_verify",),
                 "hclust2_merge": ("sq_distance_prune", "ptable_verify"),
-                "stream_search": ("sq_distance_prune", "ptable_verify")}
+                "stream_search": ("sq_distance_prune", "ptable_verify"),
+                "sharded_ivf": ("sq_distance_prune", "ptable_verify"),
+                "sharded_lsh": ("ptable_verify",)}
         for path, names in need.items():
             if min(by_path[path][n] for n in names) <= 0:
                 raise AssertionError(f"a kernel of the {path} path was not "
@@ -533,6 +597,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                               for k, v in by_path.items()},
          "max_abs_err": max(prune_bench["max_abs_err"],
                             prune_small["max_abs_err"],
+                            prune_past["max_abs_err"],
                             prune_seg["max_abs_err"]),
          "ms": prune_ms, "plain_ms": prune_plain_ms,
          "bound_ms": prune_bound, "bound_by": prune_by,
@@ -542,6 +607,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
          "library_ms": cdist_ms,
          "library_call": "torch.cdist (the distance part alone)",
          "shape": [cq, bq, dq],
+         "past_grid_limit": prune_past,
          "stream_segment": prune_seg},
         {"name": "ptable_verify", "route": "cuda",
          "source": "hsearch_tpu_torch/csrc/ptable_verify.cu",
@@ -570,7 +636,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                      "bound_by": lsh_by, "distinct_ids": lsh_distinct},
          "stream_segment": verify_seg},
     ]
-    return kernels, main_path, lsh, cluster, stream, pcluster
+    return kernels, main_path, lsh, cluster, stream, pcluster, sharded_rec
 
 
 def run_lsh(db, centers, truth, dev):
@@ -1296,6 +1362,10 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
         raise AssertionError(f"family-pair recall {recall} < "
                              f"{PC_RECALL_GATE}")
 
+    rec["seed_checkpoint"] = seed_checkpoint(db, res.pre_groups)
+    print(f"phase9 seed checkpoint: {json.dumps(rec['seed_checkpoint'])}",
+          flush=True)
+
     # one search_all slice over the first proteins of the table's groups,
     # traced; and the extension of its first batches on the card against
     # the CPU
@@ -1389,6 +1459,264 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
         rec["cli"] = run_pcluster_cli(protein_families(1 << PC_CLI_LOG2)[0],
                                       dev)
     return rec
+
+
+def seed_checkpoint(db, pre_groups, n_probe=2000):
+    """Phase 9: the corpus's group-partitioned seed index (the table's
+    pre-groups) through a ``seed`` checkpoint: save and load seconds, file
+    bytes, every array and the probe of the first ``n_probe`` proteins'
+    seeds unchanged."""
+    from hsearch_tpu_torch.align import seed_index
+    from hsearch_tpu_torch.utils import checkpoint
+    seq = np.asarray(db.seq, np.int32)
+    starts = np.asarray(db.starts, np.int64)
+    group_of = np.empty(len(starts) - 1, np.int64)
+    for g, members in enumerate(pre_groups):
+        group_of[members] = g
+    t0 = time.perf_counter()
+    idx, view = seed_index.build_index_and_view(seq, starts, group_of)
+    rec = {"positions": int(idx.num_positions), "groups": len(pre_groups),
+           "build_s": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "seed.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_index(path, idx)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["file_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = checkpoint.load_index(path)
+        rec["load_s"] = time.perf_counter() - t0
+    for f in ("sorted_codes", "positions", "seq", "starts", "group_starts",
+              "g10_at"):
+        if not np.array_equal(getattr(idx, f), getattr(back, f)):
+            raise AssertionError(f"seed checkpoint changed {f}")
+    qs = starts[:n_probe + 1]
+    code, _, v10, qg10 = seed_index.host_codes(seq[:qs[-1]], qs)
+    q = np.nonzero(v10)[0]
+    qgroups = np.repeat(group_of[:n_probe], np.diff(qs))[q]
+    want = seed_index.probe_host(view, code[q], qg10[q], 64, qgroups)
+    got = seed_index.probe_host(seed_index.host_view(back), code[q],
+                                qg10[q], 64, qgroups)
+    if not (np.array_equal(got[0], want[0])
+            and np.array_equal(got[1], want[1]) and got[2] == want[2]):
+        raise AssertionError("the loaded seed index probes differently")
+    rec["probe_pairs"] = int(len(got[0]))
+    return rec
+
+
+def run_sharded(dev, db, centers, truth, c_blk, fit=FIT, agree=AGREE):
+    """Phase 10: the sharded, multi-process and training paths on one
+    device.  Returns the record and the kernel launches of the sharded
+    IVF and LSH searches."""
+    import dataclasses
+    import socket
+
+    import torch
+    from hsearch_tpu_torch import metric
+    from hsearch_tpu_torch.core import blosum, embedding
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+    from hsearch_tpu_torch.parallel import mesh as mesh_lib, multihost
+    from hsearch_tpu_torch.parallel import sharded, train
+    from hsearch_tpu_torch.search import evaluate, exact, motif
+    gci, gki, gd = truth
+    rec, launches = {}, {}
+    mesh = mesh_lib.make_mesh(SH_DB, data=1, devices=[dev] * SH_DB)
+
+    # the sharded IVF search on phase 3's database, per-shard kb ladder
+    t0 = time.perf_counter()
+    sidx = sharded.build_ivf_index(db, torch.Generator().manual_seed(0),
+                                   mesh, block_size=32, max_hits=MAX_HITS)
+    _sync(dev)
+    ivf_rec = {"shards": SH_DB, "build_s": time.perf_counter() - t0,
+               "blocks": [s.num_blocks for s in sidx.shards[0]],
+               "ladder": {}}
+    ck.reset_launches()
+    for kb in SH_KB_LADDER:
+        st: dict = {}
+        ci, ki, _ = sharded.search_ivf(sidx, centers, RADIUS, k_blocks=kb,
+                                       center_block=c_blk, stats_out=st)
+        r = evaluate.recall_from_indices(gci, gki, gd, ci, ki, RADIUS)
+        ivf_rec["ladder"][kb] = {"recall": r.recall, **st}
+        print(f"phase10 sharded ivf kb={kb} recall={r.recall:.6f} {st}",
+              flush=True)
+        if r.recall >= 0.99:
+            break
+    if r.recall < 0.99:
+        raise AssertionError(f"sharded ivf recall {r.recall} < 0.99 at the "
+                             "top of its kb ladder")
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        sharded.search_ivf(sidx, centers, RADIUS, k_blocks=kb,
+                           center_block=c_blk, stats_out={})
+    ivf_rec.update(kb=kb, recall=r.recall, hits=int(len(ci)),
+                   search_ms=(time.perf_counter() - t0) * 1e3 / iters)
+    launches["sharded_ivf"] = ck.launch_counts()
+    ivf_rec["launches"] = launches["sharded_ivf"]
+    rec["ivf"] = ivf_rec
+    print(f"phase10 sharded ivf: {json.dumps(ivf_rec)}", flush=True)
+    del sidx
+
+    # exactness at k_blocks = blocks_per_shard on phase 4's set
+    n4 = 1 << (EXACT_N_LOG2 if dev.type == "cuda" else 12)
+    db4, c4 = db[:n4], centers[:EXACT_C]
+    gen4 = torch.Generator().manual_seed(0)
+    sidx4 = sharded.build_ivf_index(db4, gen4, mesh, block_size=32,
+                                    max_hits=MAX_HITS)
+    ex4 = sharded.search_ivf(sidx4, c4, RADIUS,
+                             k_blocks=sidx4.blocks_per_shard,
+                             center_block=EXACT_C)
+    g4 = exact.search_radius(db4, c4, RADIUS, device=dev)
+    if _pairs(ex4[0], ex4[1]) != _pairs(g4[0], g4[1]):
+        raise AssertionError("sharded ivf at k_blocks = blocks_per_shard "
+                             "differs from the oracle")
+    rec["exact"] = {"n": n4, "centers": len(c4), "hits": int(len(ex4[0])),
+                    "blocks_per_shard": sidx4.blocks_per_shard}
+    print(f"phase10 sharded exactness: {json.dumps(rec['exact'])} == "
+          "oracle", flush=True)
+
+    # the sharded LSH at the tuned point's K, L, W and probes against the
+    # single-device engine with the same parameters.  Phase 6's cand_max
+    # 2048 truncates buckets (every center is skewed), and a shard's
+    # buckets are a quarter of the whole index's, so the two truncate
+    # different candidates: both take cand_max = the index's largest
+    # bucket here, where neither truncates and the hit sets must be equal
+    _, cfg, _ = lsh_configs()[1]
+    cen = centers[:min(LSH_C, centers.shape[0])]
+    one = motif.build_index(db, torch.Generator().manual_seed(0),
+                            dataclasses.replace(cfg, cand_limit=1 << 30),
+                            device=dev)
+    cm = one.cand_max
+    ost: dict = {}
+    oc, ok_, _ = motif.search(one, cen, cfg, stats_out=ost)
+    del one
+    t0 = time.perf_counter()
+    slsh = sharded.build_index(db, torch.Generator().manual_seed(0), mesh,
+                               cfg, cand_max=cm)
+    _sync(dev)
+    lsh_build_s = time.perf_counter() - t0
+    sst: dict = {}
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    lc, lk, _ = sharded.search(slsh, cen, RADIUS,
+                               center_block=cfg.center_block, stats_out=sst)
+    lsh_ms = (time.perf_counter() - t0) * 1e3
+    launches["sharded_lsh"] = ck.launch_counts()
+    del slsh
+    if ost["skewed"] or sst["skewed"] or _pairs(lc, lk) != _pairs(oc, ok_):
+        raise AssertionError(f"sharded LSH ({sst}) differs from the "
+                             f"single-device engine ({ost}) with the same "
+                             "parameters")
+    rec["lsh"] = {"centers": len(cen), "cand_max": cm,
+                  "build_s": lsh_build_s, "search_ms": lsh_ms,
+                  "hits": int(len(lc)), "stats": sst,
+                  "launches": launches["sharded_lsh"]}
+    print(f"phase10 sharded lsh == single-device: {json.dumps(rec['lsh'])}",
+          flush=True)
+
+    # exact_topk against the exact oracle
+    tn, tc, tk = SH_TOPK
+    tn = tn if dev.type == "cuda" else 12
+    dbt, ct = db[:1 << tn], centers[:tc]
+    t0 = time.perf_counter()
+    ti, tdist = sharded.exact_topk(dbt, ct, tk, mesh)
+    topk_s = time.perf_counter() - t0
+    od, oi = exact.search_topk(dbt, ct, tk + 1, device=dev)
+    if not np.allclose(tdist ** 2, od[:, :tk] ** 2, rtol=1e-5, atol=1e-4):
+        raise AssertionError("exact_topk distances differ from the oracle")
+    clear = od[:, tk - 1] < od[:, tk]
+    for i in np.nonzero(clear)[0]:
+        if set(ti[i].tolist()) != set(oi[i, :tk].tolist()):
+            raise AssertionError(f"exact_topk ids differ for center {i}")
+    rec["exact_topk"] = {"n": 1 << tn, "centers": len(ct), "k": tk,
+                         "seconds": topk_s, "centers_id_checked":
+                         int(clear.sum())}
+    print(f"phase10 exact_topk == oracle: {json.dumps(rec['exact_topk'])}",
+          flush=True)
+
+    # a world of one through multihost.initialize, then torn down
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0, device=dev.type,
+                         timeout_s=120)
+    try:
+        init_s = time.perf_counter() - t0
+        hm = multihost.host_mesh(SH_DB, local_devices=[dev] * SH_DB)
+        echo = multihost._gather_blocks(torch.arange(4, device=dev)[None])
+        miv = multihost.build_ivf_index(
+            db4, n4, torch.Generator().manual_seed(0), hm, block_size=32,
+            max_hits=MAX_HITS)
+        mres = multihost.search_ivf(miv, c4, RADIUS,
+                                    k_blocks=sidx4.blocks_per_shard,
+                                    center_block=EXACT_C)
+        backend = torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
+    if not (all(np.array_equal(a, b) for a, b in zip(mres, ex4))
+            and echo.tolist() == [[0, 1, 2, 3]]):
+        raise AssertionError("the world-of-one search differs from the "
+                             "single-process sharded one")
+    rec["multihost"] = {"backend": backend, "init_s": init_s,
+                        "hits": int(len(mres[0]))}
+    print(f"phase10 multihost world of one: {json.dumps(rec['multihost'])}"
+          " == sharded", flush=True)
+    del sidx4, miv
+
+    # fit_embedding at the CLI's defaults, on the device and on the CPU
+    t0 = time.perf_counter()
+    coords = train.fit_embedding(**fit, device=dev)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coords_cpu = train.fit_embedding(**fit, device="cpu")
+    fit_cpu_s = time.perf_counter() - t0
+
+    def mean_err(x):
+        d = np.linalg.norm(x[:, None] - x[None, :], axis=-1)
+        return float(np.abs(d - blosum.BLOSUM_DISTANCE).mean())
+
+    rec["fit"] = {**fit, "seconds": fit_s, "cpu_seconds": fit_cpu_s,
+                  "mean_abs_err": mean_err(coords),
+                  "shipped_mean_abs_err": mean_err(embedding.COORDINATES),
+                  "max_diff_vs_cpu": float(np.abs(coords - coords_cpu).max())}
+    print(f"phase10 fit_embedding: {json.dumps(rec['fit'])}", flush=True)
+    if rec["fit"]["mean_abs_err"] >= 1.1 * rec["fit"]["shipped_mean_abs_err"]:
+        raise AssertionError("fit_embedding misses the 1.1x bar")
+    if rec["fit"]["max_diff_vs_cpu"] > 1e-3:
+        raise AssertionError("fit_embedding on the device differs from the "
+                             "CPU run by more than 1e-3")
+
+    # the mesh train step on the logical shards against one device
+    rng = np.random.default_rng(0)
+    c0 = rng.normal(0, 1, (20, 8)).astype(np.float32)
+    batch = [torch.as_tensor(x, device=dev)
+             for x in train.sample_pair_batch(rng, 4096, 4)]
+    stepped = []
+    for m in (None, mesh):
+        c = torch.tensor(c0, device=dev, requires_grad=True)
+        train.make_train_step(torch.optim.Adam([c], lr=3e-2), m)(*batch)
+        stepped.append(c.detach().cpu().numpy())
+    step_diff = float(np.abs(stepped[0] - stepped[1]).max())
+    if step_diff > 1e-5:
+        raise AssertionError(f"mesh train step differs by {step_diff}")
+    rec["mesh_step_max_diff"] = step_diff
+
+    # topk_agreement, the device against the CPU
+    length, k, nq = agree
+    t0 = time.perf_counter()
+    a_dev = metric.topk_agreement(np.random.default_rng(0), length, k, nq,
+                                  device=dev)
+    agree_s = time.perf_counter() - t0
+    a_cpu = metric.topk_agreement(np.random.default_rng(0), length, k, nq,
+                                  device="cpu")
+    if a_dev != a_cpu:
+        raise AssertionError(f"topk_agreement {a_dev} on {dev} != {a_cpu}")
+    rec["topk_agreement"] = {"length": length, "k": k, "queries": nq,
+                             "value": a_dev, "seconds": agree_s}
+    print(f"phase10 mesh step diff {step_diff:.3e}; topk_agreement "
+          f"{json.dumps(rec['topk_agreement'])} == CPU", flush=True)
+    return rec, launches
 
 
 def run_pcluster_cli(db, dev):
@@ -1612,7 +1940,7 @@ def main(argv=None) -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
           f" x{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    kernels, main_path, lsh, cluster, stream, pcluster = run(
+    kernels, main_path, lsh, cluster, stream, pcluster, sharded = run(
         "cuda", stream_n_log2=args.stream_n_log2, trace_out=args.trace_out)
     print("kernels " + json.dumps(kernels))
     print("main_path " + json.dumps(main_path))
@@ -1620,6 +1948,7 @@ def main(argv=None) -> int:
     print("cluster " + json.dumps(cluster))
     print("stream " + json.dumps(stream))
     print("pcluster " + json.dumps(pcluster))
+    print("sharded " + json.dumps(sharded))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))

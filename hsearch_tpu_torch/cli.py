@@ -21,6 +21,7 @@
     gen-kmers            distinct k-mers of a corpus with their counts
     orf                  six-frame ORF translation of DNA
     stockholm            motif centers from a Pfam STOCKHOLM file
+    fit-embedding        train a BLOSUM62-metric amino-acid embedding
 
 Flags, defaults and output files are those of the JAX package's tools:
 triples ``center kmer dist`` (``{d:g}``), and with ``-g`` an ``ACCURACY``
@@ -38,11 +39,6 @@ import dataclasses
 import sys
 
 import numpy as np
-
-# tools of the JAX package whose modules are not ported yet, with the
-# ROADMAP item that ports them
-_NOT_PORTED = {"fit-embedding": "ROADMAP A.9"}
-
 
 def _read_kmer_input(path: str, k: int):
     """k-mer FASTA or datapoints file -> (names, kmers (N, k) int32, points).
@@ -322,7 +318,7 @@ def cmd_hclust2(args):
                                    args.dist_coordinator)):
         raise SystemExit(f"{args.tool}: --dist-nproc/--dist-pid/"
                          "--dist-coordinator (distributed clustering) are "
-                         "not yet ported (ROADMAP A.10)")
+                         "not yet ported (ROADMAP A.10d)")
     db = hio.read_fasta(args.database, seed=args.seed)
     km = _kmer_matrix(db, args.kmer_len)
     cfg = greedy.ClusterConfig(hash_k=args.hash_k, hash_l=args.hash_l,
@@ -383,7 +379,7 @@ def cmd_pcluster(args):
                                    args.dist_coordinator)):
         raise SystemExit("pcluster: --dist-nproc/--dist-pid/"
                          "--dist-coordinator (distributed clustering) are "
-                         "not yet ported (ROADMAP A.10)")
+                         "not yet ported (ROADMAP A.10d)")
     if args.threads:
         torch.set_num_threads(args.threads)
     db = hio.read_fasta(args.database, seed=args.seed)
@@ -654,6 +650,16 @@ def cmd_serve(args):
             fin.close()
 
 
+def cmd_fit_embedding(args):
+    from .parallel import train
+    coords = train.fit_embedding(dim=args.dim, steps=args.steps,
+                                 batch=args.batch, kmer_len=args.kmer_len,
+                                 lr=args.lr, seed=args.seed,
+                                 device=args.device)
+    np.savetxt(args.output, coords, fmt="%.6f")
+    print(f"[{args.dim}-dim embedding -> {args.output}]", file=sys.stderr)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="hsearch_tpu_torch",
                                 description=__doc__.split("\n")[0])
@@ -903,16 +909,23 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--seed", type=int, default=0)
     device_flag(q)
     q.set_defaults(func=cmd_lsh_sweep)
+
+    q = sub.add_parser("fit-embedding")
+    q.add_argument("-o", "--output", required=True)
+    q.add_argument("--dim", type=int, default=8)
+    q.add_argument("--steps", type=int, default=2000)
+    q.add_argument("--batch", type=int, default=4096)
+    q.add_argument("--kmer-len", type=int, default=1)
+    q.add_argument("--lr", type=float, default=1e-1)
+    q.add_argument("--seed", type=int, default=0)
+    device_flag(q)
+    q.set_defaults(func=cmd_fit_embedding)
     return p
 
 
 def main(argv=None):
     from . import __version__
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _NOT_PORTED:
-        raise SystemExit(f"{argv[0]}: not yet ported "
-                         f"({_NOT_PORTED[argv[0]]}); run it with "
-                         "python -m hsearch_tpu")
     p = build_parser()
     p.add_argument("--version", action="version",
                    version=f"hsearch_tpu_torch {__version__}")

@@ -1,7 +1,11 @@
-"""BLOSUM62 (own copy of hsearch_tpu/core/blosum.py's table).
+"""BLOSUM62 and the similarity -> metric-distance transform (own copy of
+hsearch_tpu/core/blosum.py's table and helpers).
 
-Rows/columns in the canonical order ARNDCQEGHILKMFPSTWYV (NCBI standard
-table; reference pcluster/src/pcluster/weight.hpp:22-45).
+d(i,j) = B(i,i) + B(j,j) - 2*B(i,j) satisfies the triangle inequality over
+the 20 amino acids, so it embeds into Euclidean space (reference:
+BLOSUM-Metric/src/BLOSUM-metric/distance_matrix.hpp:13-51).  Rows/columns
+in the canonical order ARNDCQEGHILKMFPSTWYV (NCBI standard table;
+reference pcluster/src/pcluster/weight.hpp:22-45).
 """
 
 from __future__ import annotations
@@ -31,3 +35,29 @@ BLOSUM62 = np.array([
     [-2, -2, -2, -3, -2, -1, -2, -3,  2, -1, -1, -2, -1,  3, -3, -2, -2,  2,  7, -1],  # Y
     [ 0, -3, -3, -3, -1, -2, -2, -3, -3,  3,  1, -2,  1, -1, -2, -2,  0, -3, -1,  4],  # V
 ], dtype=np.int32)
+
+
+def similarity_to_distance(B: np.ndarray = BLOSUM62) -> np.ndarray:
+    """d(i,j) = B(i,i) + B(j,j) - 2 B(i,j) (distance_matrix.hpp:18)."""
+    diag = np.diag(B)
+    return diag[:, None] + diag[None, :] - 2 * B
+
+
+def triangle_inequality_violations(D: np.ndarray) -> int:
+    """Count of (i,j,k) triples with D[i,j] + D[j,k] < D[i,k] (the
+    all-triples check of distance_matrix.hpp:36-50)."""
+    s = D[:, :, None] + D[None, :, :]       # s[i,j,k] = D[i,j] + D[j,k]
+    return int((s < D[:, None, :]).sum())
+
+
+#: The metric distance matrix used everywhere downstream
+#: (equals BLOSUM.m:3-22's hard-coded D).
+BLOSUM_DISTANCE = similarity_to_distance(BLOSUM62)
+
+
+def score_kmers(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Ungapped BLOSUM62 score of equal-length index k-mers (broadcast).
+
+    a: (..., L), b: (..., L) -> (...,) summed substitution score.
+    """
+    return BLOSUM62[a, b].sum(axis=-1)

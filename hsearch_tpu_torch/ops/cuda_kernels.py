@@ -48,7 +48,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sq_distance_prune": ("hs_sq_distance_prune",
                           [_P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I,
-                           _P]),
+                           _I, _I, _P]),
     "ptable_verify": ("hs_ptable_verify",
                       [_P, _P, _P, _P, _P, _F, _I, _P, _P, _I, _I, _I, _I,
                        _P]),
@@ -149,6 +149,21 @@ def _launch(name: str, dev: torch.device, *args) -> None:
 # blocks per select group of the cascade; the kernel writes one minimum
 # per group (csrc/prune.cu GROUP)
 PRUNE_GROUP = 64
+# block centroids per block tile (csrc/prune.cu BN), and the most block
+# tiles one grid covers (the grid's y extent)
+PRUNE_TILE = 128
+MAX_GRID_Y = 65535
+
+
+def prune_launch_ranges(b: int) -> list[tuple[int, int]]:
+    """(first block tile, tiles) of each grid the prune wrapper launches
+    for ``b`` blocks: one grid per MAX_GRID_Y tiles of PRUNE_TILE key
+    columns, in order (the first zeroes n_alive, so one grid is launched
+    even for b = 0)."""
+    bp = -(-b // PRUNE_GROUP) * PRUNE_GROUP
+    tiles = -(-bp // PRUNE_TILE)
+    return [(t0, min(MAX_GRID_Y, tiles - t0))
+            for t0 in range(0, max(tiles, 1), MAX_GRID_Y)]
 
 
 def sq_distance_prune_plain(q_emb: torch.Tensor, centroids: torch.Tensor,
@@ -195,9 +210,6 @@ def sq_distance_prune(q_emb: torch.Tensor, centroids: torch.Tensor,
         raise ValueError(f"sq_distance_prune: D={d} must be a multiple of 4"
                          " and the operands 16-byte aligned")
     bp = -(-b // PRUNE_GROUP) * PRUNE_GROUP
-    if -(-bp // 128) > 65535:
-        raise ValueError(f"sq_distance_prune: B={b} blocks exceeds the "
-                         "kernel grid's 65535 tiles of 128 (B <= 8,388,480)")
     # one reduction per operand, with no (rows, D) temporary
     q_sqnorm = torch.linalg.vector_norm(q_emb, dim=1).square()
     cent_sqnorm = torch.linalg.vector_norm(centroids, dim=1).square()
@@ -205,10 +217,12 @@ def sq_distance_prune(q_emb: torch.Tensor, centroids: torch.Tensor,
     gmin = torch.empty((c, bp // PRUNE_GROUP), dtype=torch.float32,
                        device=dev)
     n_alive = torch.empty((c,), dtype=torch.int32, device=dev)
-    _launch("sq_distance_prune", dev, q_emb.data_ptr(), centroids.data_ptr(),
-            q_sqnorm.data_ptr(), cent_sqnorm.data_ptr(), radii.data_ptr(),
-            float(np.float32(r)), key.data_ptr(), gmin.data_ptr(),
-            n_alive.data_ptr(), c, b, d)
+    for tile0, tiles in prune_launch_ranges(b):
+        _launch("sq_distance_prune", dev, q_emb.data_ptr(),
+                centroids.data_ptr(), q_sqnorm.data_ptr(),
+                cent_sqnorm.data_ptr(), radii.data_ptr(),
+                float(np.float32(r)), key.data_ptr(), gmin.data_ptr(),
+                n_alive.data_ptr(), c, b, d, tile0, tiles)
     sq_distance_prune.launches += 1
     return key, gmin, n_alive
 

@@ -319,16 +319,15 @@ def _cascade_top_blocks(key: torch.Tensor, gmin: torch.Tensor, kb: int):
 _SELECT_GROUP = cuda_kernels.PRUNE_GROUP
 
 
-def _search_block(index: IVFIndex, centers: torch.Tensor,
-                  centers_emb: torch.Tensor, r: np.float32, k_blocks: int,
-                  max_hits: int, cap_frac: int = 4, with_d2: bool = True):
+def _search_block_hits(index: IVFIndex, centers: torch.Tensor,
+                       centers_emb: torch.Tensor, r: np.float32,
+                       k_blocks: int, max_hits: int):
     """One center block: prune blocks, select the nearest survivors, exact
-    verify.
+    verify, keep each center's nearest ``max_hits`` hits.
 
-    Returns (packed flat int32 buffer — ops/compact layout with
-    meta = [n_hits (C), n_alive (C)]; ids (C, max_hits) sentinel-N and
-    d2 (C, max_hits) as the lossless overflow fallback).  Every step is
-    queued on the device without a host synchronisation.
+    Returns (ids (C, k) int32 sentinel-N, d2 (C, k) f32, n_hits (C,),
+    n_alive (C,)), k = min(max_hits, kb * bs).  Every step is queued on
+    the device without a host synchronisation.
     """
     n = index.n_points
     bs = index.block_size
@@ -351,8 +350,19 @@ def _search_block(index: IVFIndex, centers: torch.Tensor,
     out_ids = torch.where(found,
                           index.order.view(-1)[torch.where(found, slot, 0)],
                           torch.full_like(sel, n, dtype=index.order.dtype))
-    out_d2 = -negd
-    packed = compact.pack_hits(out_ids, out_d2, n,
+    return out_ids, -negd, n_hits, n_alive
+
+
+def _search_block(index: IVFIndex, centers: torch.Tensor,
+                  centers_emb: torch.Tensor, r: np.float32, k_blocks: int,
+                  max_hits: int, cap_frac: int = 4, with_d2: bool = True):
+    """``_search_block_hits`` and the packed transfer: returns (packed flat
+    int32 buffer — ops/compact layout with meta = [n_hits (C),
+    n_alive (C)]; ids (C, max_hits) sentinel-N and d2 (C, max_hits) as
+    the lossless overflow fallback)."""
+    out_ids, out_d2, n_hits, n_alive = _search_block_hits(
+        index, centers, centers_emb, r, k_blocks, max_hits)
+    packed = compact.pack_hits(out_ids, out_d2, index.n_points,
                                meta_vecs=(n_hits, n_alive),
                                cap_frac=cap_frac, with_d2=with_d2)
     return packed, out_ids, out_d2

@@ -189,28 +189,41 @@ def _candidates(index: MotifIndex, qcodes: torch.Tensor, cand_max: int):
     return segment.dedup_sorted(ids, sentinel=index.num_points), n_dropped
 
 
-def _probe_verify(index: MotifIndex, centers: torch.Tensor,
-                  qcodes: torch.Tensor, r2: float, cand_max: int,
-                  max_hits: int = 256):
-    """One center block: probe all tables, dedup, exact-verify, compact.
+def _probe_verify_hits(index: MotifIndex, centers: torch.Tensor,
+                       qcodes: torch.Tensor, r2: float, cand_max: int,
+                       max_hits: int = 256, n_real: int | None = None):
+    """One center block: probe all tables, dedup, exact-verify, keep each
+    center's nearest ``max_hits`` hits.
 
-    Returns (packed flat int32 buffer in the ops/compact layout with
-    meta = [n_hits (C), n_dropped (C)]; ids (C, k) sentinel-N and d2
-    (C, k), the lossless fallback on packed-capacity overflow).  Nothing
-    here waits for the device.
+    Returns (ids (C, k) int64 sentinel-N, d2 (C, k), n_hits (C,),
+    n_dropped (C,)).  ``n_real`` (default: every row) bounds the rows
+    that may be hits: a database shard's zero-filled padding rows lie at
+    its tail, at ids n_real .. N-1.  Nothing here waits for the device.
     """
     n = index.num_points
     ids, n_dropped = _candidates(index, qcodes, cand_max)
     # the verify kernel at block size 1: a dead "block" is a sentinel id
     neg = torch.where(ids < n, 0.0, float("inf"))
     ptab = _center_ptables(centers, index.kmer_len)
-    d2m, n_hits = cuda_kernels.ptable_verify(ptab, index.db_kmers,
-                                             index.order, ids, neg, r2, n)
+    d2m, n_hits = cuda_kernels.ptable_verify(
+        ptab, index.db_kmers, index.order, ids, neg, r2,
+        n if n_real is None else n_real)
     negd, sel = torch.topk(-d2m, min(max_hits, d2m.shape[1]), dim=1)
     found = torch.isfinite(negd)
     hit_ids = torch.where(found, torch.gather(ids, 1, sel), n)
-    hit_d2 = -negd
-    packed = compact.pack_hits(hit_ids, hit_d2, n,
+    return hit_ids, -negd, n_hits, n_dropped
+
+
+def _probe_verify(index: MotifIndex, centers: torch.Tensor,
+                  qcodes: torch.Tensor, r2: float, cand_max: int,
+                  max_hits: int = 256):
+    """``_probe_verify_hits`` and the packed transfer: returns (packed
+    flat int32 buffer in the ops/compact layout with meta = [n_hits (C),
+    n_dropped (C)]; ids (C, k) sentinel-N and d2 (C, k), the lossless
+    fallback on packed-capacity overflow)."""
+    hit_ids, hit_d2, n_hits, n_dropped = _probe_verify_hits(
+        index, centers, qcodes, r2, cand_max, max_hits)
+    packed = compact.pack_hits(hit_ids, hit_d2, index.num_points,
                                meta_vecs=(n_hits, n_dropped))
     return packed, hit_ids, hit_d2
 

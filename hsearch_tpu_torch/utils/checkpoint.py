@@ -1,9 +1,9 @@
 """Index serialization (counterpart of hsearch_tpu/utils/checkpoint.py).
 
-The ``ivf``, ``motif`` and ``segivf`` kinds, in the JAX package's ``.npz``
-format (arrays plus a small json header, with the same field names),
-readable and writable with numpy alone — so an index built by either
-package can be searched by the other.
+The ``ivf``, ``motif``, ``segivf`` and ``seed`` kinds, in the JAX
+package's ``.npz`` format (arrays plus a small json header, with the same
+field names), readable and writable with numpy alone — so an index built
+by either package can be searched by the other.
 """
 
 from __future__ import annotations
@@ -14,12 +14,14 @@ import numpy as np
 import torch
 
 from .. import _device
+from ..align import seed_index
 from ..search import ivf, motif, stream
 
 
 def save_index(path: str, index) -> None:
-    """Serialize an IVFIndex (kind ``ivf``), a MotifIndex (kind ``motif``)
-    or a SegmentedIVF (kind ``segivf``) to ``path`` (.npz)."""
+    """Serialize an IVFIndex (kind ``ivf``), a MotifIndex (kind ``motif``),
+    a SegmentedIVF (kind ``segivf``) or a SeedIndex (kind ``seed``) to
+    ``path`` (.npz)."""
     if isinstance(index, stream.SegmentedIVF):
         # the host byte set is the checkpoint: per-segment rows and order
         # maps, uncompressed (the rows are high-entropy); the k-mers and
@@ -57,6 +59,17 @@ def save_index(path: str, index) -> None:
             order=index.order.cpu().numpy(),
             block_centroid=index.block_centroid.cpu().numpy(),
             block_radius=index.block_radius.cpu().numpy())
+    elif isinstance(index, seed_index.SeedIndex):
+        # g10_at is derived at load; without group_starts a grouped index
+        # would probe across group boundaries after the round trip
+        extra = {} if index.group_starts is None \
+            else {"group_starts": np.asarray(index.group_starts)}
+        np.savez_compressed(
+            path, __kind__="seed", meta=json.dumps({}),
+            sorted_codes=np.asarray(index.sorted_codes),
+            positions=np.asarray(index.positions),
+            seq=np.asarray(index.seq), starts=np.asarray(index.starts),
+            **extra)
     else:
         raise TypeError(f"unknown index type {type(index)}")
 
@@ -95,16 +108,28 @@ def peek(path: str) -> tuple[str, dict]:
 
 def load_index(path: str, device_budget_bytes: int = 0,
                device: str | torch.device = "cuda"):
-    """Load an ``ivf``, ``motif`` or ``segivf`` index saved by either
-    package onto ``device``.
+    """Load an ``ivf``, ``motif``, ``segivf`` or ``seed`` index saved by
+    either package onto ``device``.
 
     A ``segivf`` index loads host-resident (page-locked on a CUDA device);
     ``device_budget_bytes`` re-pins its leading segments device-resident
     through ``stream.set_residency``.  The budget is ignored for the other
-    kinds, which load whole onto the device."""
+    kinds, which load whole onto the device.  A ``seed`` index is host
+    numpy, as the aligner keeps it (``device`` is ignored), with its
+    ``g10_at`` table rebuilt from the sequence."""
     z = np.load(path, allow_pickle=False)
     kind = str(z["__kind__"])
     meta = json.loads(str(z["meta"]))
+    if kind == "seed":
+        seq = np.asarray(z["seq"], np.int32)
+        starts = np.asarray(z["starts"], np.int32)
+        return seed_index.SeedIndex(
+            sorted_codes=np.asarray(z["sorted_codes"]).astype(np.uint32),
+            positions=np.asarray(z["positions"]).astype(np.int64),
+            seq=seq, starts=starts,
+            group_starts=np.asarray(z["group_starts"], np.int32)
+            if "group_starts" in z else None,
+            g10_at=seed_index.g10_table(seq, starts))
     if kind == "segivf":
         dev = _device.resolve(device)
         l = int(meta["kmer_len"])
@@ -125,8 +150,7 @@ def load_index(path: str, device_budget_bytes: int = 0,
             z["sorted_codes"], z["perm"], z["db_kmers"],
             int(meta["cand_max"]), device)
     if kind != "ivf":
-        raise ValueError(f"index kind {kind!r} in {path} is not ported yet "
-                         "(only 'ivf', 'motif' and 'segivf' load)")
+        raise ValueError(f"unknown index kind {kind!r} in {path}")
     ds = z["db_sorted"]
     kmer_len = int(ds.shape[2]) if ds.ndim == 3 else int(meta["kmer_len"])
     return index_from_arrays(ds, z["order"], z["block_centroid"],

@@ -125,10 +125,22 @@ def test_no_retry_autotune(tmp_path, inputs, capsys):
     assert got <= truth and len(got) >= 0.99 * len(truth)
 
 
-@pytest.mark.parametrize("tool,item", [("fit-embedding", "A.9")])
-def test_unported_tools_exit_clearly(tmp_path, inputs, tool, item):
-    with pytest.raises(SystemExit, match=f"not yet ported.*ROADMAP {item}"):
-        cli.main([tool, "-d", inputs["db"], "-o", str(tmp_path / "x")])
+@pytest.mark.parametrize("dim", [8, 4])
+def test_fit_embedding_equals_jax_cli(tmp_path, capsys, dim):
+    """Both CLIs draw the same initial table and batches from one seed;
+    their Adam steps agree to float32 noise."""
+    outs = []
+    for tag, main in (("torch", cli.main), ("jax", jcli.main)):
+        out = str(tmp_path / f"{tag}.txt")
+        args = ["fit-embedding", "-o", out, "--dim", str(dim), "--steps",
+                "50", "--batch", "256"]
+        main(args + (["--device", "cpu"] if tag == "torch" else []))
+        assert f"[{dim}-dim embedding -> {out}]" in capsys.readouterr().err
+        outs.append(np.loadtxt(out))
+    assert outs[0].shape == (20, dim) and np.isfinite(outs[0]).all()
+    np.testing.assert_allclose(outs[0], outs[1], atol=1e-3)
+    with open(str(tmp_path / "torch.txt")) as f:
+        assert all(len(v.split(".")[1]) == 6 for v in f.readline().split())
 
 
 # ---- pcluster -----------------------------------------------------------------

@@ -10,11 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from hsearch_tpu_torch import cli
+from hsearch_tpu_torch import cli, metric
 from hsearch_tpu_torch.align import pipeline
 from hsearch_tpu_torch.cluster import centroid, greedy, pcluster, postprocess
 from hsearch_tpu_torch.core import io as tio
 from hsearch_tpu_torch.lsh import tuning
+from hsearch_tpu_torch.parallel import mesh, multihost, train
 from hsearch_tpu_torch.search import exact, ivf, motif, stream
 from hsearch_tpu_torch.utils import checkpoint
 
@@ -45,10 +46,11 @@ def test_imports_without_jax_or_reference():
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert res.returncode == 0, res.stderr
     # every module was found: lsh/, cluster/ (pcluster included),
-    # search/stream, utils/{stats,profiling}, core/{dataprep,orf,stockholm}
-    # and align/ (reduced, blast_stat, hostops, seed_index, extend,
-    # gapped_device, pipeline)
-    assert int(res.stdout.split()[-1]) >= 44
+    # search/stream, utils/{stats,profiling}, core/{dataprep,orf,stockholm,
+    # mds}, align/ (reduced, blast_stat, hostops, seed_index, extend,
+    # gapped_device, pipeline), metric and parallel/ (mesh, sharded,
+    # multihost, _mp_check, train)
+    assert int(res.stdout.split()[-1]) >= 52
 
 
 def _proteins(db):
@@ -88,6 +90,12 @@ ENTRY_POINTS = {
         _proteins(db), [pcluster.klsh_init(torch.Generator())]),
     "stream.build_segmented": lambda db: stream.build_segmented(
         db, torch.Generator(), segment_points=8),
+    "metric.k_best_peptides": lambda db: metric.k_best_peptides(db[0], 5),
+    "train.fit_embedding": lambda db: train.fit_embedding(steps=1),
+    "mesh.make_mesh": lambda db: mesh.make_mesh(),
+    "multihost.host_mesh": lambda db: multihost.host_mesh(),
+    "multihost.initialize": lambda db: multihost.initialize(
+        "127.0.0.1:1", 1, 0),
     "stream.upload_segment": lambda db: stream.upload_segment(
         stream.host_segment_from_arrays(
             db.reshape(4, -1).astype(np.int8),
@@ -159,3 +167,10 @@ def test_pcluster_cli_raises_without_cuda(monkeypatch, tmp_path):
     fa.write_text(">a\nARNDCQEGHILKMFPSTWYV\n>b\nARNDCQEGHILKMFPSTWYA\n")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["pcluster", "-d", str(fa), "-o", str(tmp_path / "o")])
+
+
+def test_fit_embedding_cli_raises_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["fit-embedding", "-o", str(tmp_path / "c.txt"),
+                  "--steps", "1"])

@@ -154,6 +154,29 @@ def test_ptable_verify_plain_matches_reference(c, kb, bs, l):
     _check_verify_vs_jax(np.random.default_rng(kb), c, kb, bs, l)
 
 
+# the grid holds 65,535 block tiles of 128 columns: B below, at and above
+# that (8,388,480 blocks), and B = 0 (one grid, to zero n_alive)
+@pytest.mark.parametrize("b", [0, 1, 200, 128 * 65535 - 200, 128 * 65535,
+                               128 * 65535 + 1, 8_388_608,
+                               2 * 128 * 65535 + 129])
+def test_prune_launch_ranges_cover_every_column_once(b):
+    ranges = ck.prune_launch_ranges(b)
+    bp = -(-b // G) * G
+    tiles = -(-bp // ck.PRUNE_TILE)
+    assert ranges[0][0] == 0
+    assert len(ranges) == max(1, -(-tiles // ck.MAX_GRID_Y))
+    cover = np.zeros(max(tiles, 1), np.int64)
+    for t0, n in ranges:
+        assert 0 <= n <= ck.MAX_GRID_Y
+        cover[t0:t0 + n] += 1
+    # every key column 0..Bp-1 lies in exactly one launched tile
+    cols = np.zeros(tiles * ck.PRUNE_TILE, np.int64)
+    for t0, n in ranges:
+        cols[t0 * ck.PRUNE_TILE:(t0 + n) * ck.PRUNE_TILE] += 1
+    assert (cols[:bp] == 1).all()
+    assert (cover == 1).all() or tiles == 0
+
+
 def test_cpu_wrappers_take_plain_versions(rng):
     q, c, rad = _prune_inputs(rng)
     qt, ct, rt = (torch.as_tensor(x) for x in (q, c, rad))
@@ -237,6 +260,25 @@ def test_prune_kernel_ragged_on_cuda(c, b, d):
                     for x in _prune_inputs(rng, c, b, d))
     r = float(torch.sqrt(td.sq_distance_matrix(q, cent)).median()) - 2.5
     _check_prune_on_cuda(q, cent, rad, r)
+
+
+@pytest.mark.cuda
+def test_prune_kernel_past_the_grid_limit_on_cuda():
+    """B = 8,388,608 blocks, 128 past the 65,535 block tiles one grid
+    holds (a 2.1 GB key matrix at C = 64): the second grid's columns too
+    agree with the plain version."""
+    dev = _cuda()
+    b, c, d = 8_388_608, 64, 8
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(c, d, generator=g, device=dev) * 10
+    cent = torch.randn(b, d, generator=g, device=dev) * 10
+    rad = torch.rand(b, generator=g, device=dev) * 5
+    r = float(torch.sqrt(td.sq_distance_matrix(q, cent[:65536])).median()) \
+        - 2.5
+    assert len(ck.prune_launch_ranges(b)) == 2
+    _check_prune_on_cuda(q, cent, rad, r)
+    key = ck.sq_distance_prune(q, cent, rad, r)[0]
+    assert bool(torch.isfinite(key[:, 128 * 65535:b]).any())
 
 
 # ragged: kb*bs not a multiple of the 512-candidate tile; rows of 200
