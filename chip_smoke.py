@@ -1,6 +1,7 @@
 """GPU smoke run of hsearch_tpu_torch: kernels, IVF and LSH search,
-exactness, k-mer clustering, the segmented (stream) engine, the protein
-aligner and pcluster, the sharded, multi-process and training paths, CLI.
+exactness, k-mer clustering, the segmented (stream) engine alone and over
+db shards, the protein aligner and pcluster, the sharded, multi-process and
+training paths, distributed k-mer and protein clustering, CLI.
 
     python3 chip_smoke.py [--stream-n-log2 N] [--trace-out PATH]
 
@@ -67,6 +68,13 @@ Phases, each of which fails the run on error:
      ``--stream-n-log2 24`` runs it at 2^24 rows in 4 segments of 2^22,
      ``--stream-n-log2 27`` at 2^27 rows (32 segments of 2^22, built
      from an iterator of 2^22-row chunks).
+ 8b. the same index through parallel/stream_sharded.py over 4 logical db
+     shards of the card (one wave): == the oracle at kb = a segment's
+     block count (retry off); == search_segmented at phase 8's kb (retry
+     off) with its recall, ms per call over 3 calls streamed and resident
+     beside phase 8's, launches per call and each wave's upload ms; ==
+     the oracle from kb = 128 with the retry on (centers retried); over 2
+     shards (2 waves) == search_segmented at phase 8's kb.
   9. the aligner and pcluster on the JAX package's examples/bench_align.py
      corpus (families of 4 copies of a 120-residue base, 4 substitutions
      each, seed 0): cluster_proteins at 100,000 proteins (bits 12, sigma
@@ -98,11 +106,19 @@ Phases, each of which fails the run on error:
      1e-3 of the CPU run); the mesh train step on the 4 logical shards ==
      one device to 1e-5; topk_agreement (length 8, k 1000, 100 queries)
      card == CPU.
+ 11. distributed clustering, 2-process gloo clusters whose ranks compute
+     on the card (NCCL refuses two ranks on one card): greedy_dist on
+     phase 7's k-mers and config == phase 7's parent / merged bit for bit;
+     hclust2 --merge-radius as an NCCL world of one == the run without
+     --dist-* (2^14 rows); pcluster_dist on phase 9's corpus and KLSH draw
+     (query mode) == phase 9's labels, pre-groups and hit rows, and on a
+     2^14-protein corpus at bits 16, sigma 0.2, two tables == one process;
+     seconds, each rank's hits and the partition modes.
 
 Output: free-form progress lines; ``kernels``, ``main_path``, ``lsh``,
-``cluster``, ``stream``, ``pcluster`` and ``sharded`` lines; the
-nvidia-smi name/power line; one JSON object ``{"kernels": [...]}`` and,
-last, ``{"ok": true, "device": {...}}``.
+``cluster``, ``stream``, ``pcluster``, ``sharded`` and ``distributed``
+lines; the nvidia-smi name/power line; one JSON object ``{"kernels":
+[...]}`` and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -159,6 +175,8 @@ PRUNE_PAST_GRID = (64, 8, 8_388_608)
 # defaults, and topk_agreement's (length, k, queries)
 SH_DB, SH_KB_LADDER = 4, (128, 256, 512, 1024)
 SH_TOPK = (16, 256, 16)
+# phase 11: rows of the hclust2 world-of-one CLI run (log2)
+DIST_CLI_LOG2 = 14
 FIT = dict(dim=8, steps=2000, batch=4096, kmer_len=1, lr=1e-1, seed=0)
 AGREE = (8, 1000, 100)
 
@@ -293,8 +311,8 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
         cli=True, stream_n_log2=STREAM_N_LOG2, stream_c=STREAM_C,
         trace_out=None, pcluster_sizes=None, sharded_sizes=None):
     """All phases on ``device``; returns the kernel records and the
-    records of the IVF, LSH, clustering, segmented-engine, pcluster and
-    sharded phases.  ``pcluster_sizes`` and ``sharded_sizes`` override
+    records of the IVF, LSH, clustering, segmented-engine, pcluster,
+    sharded and distributed phases.  ``pcluster_sizes`` and ``sharded_sizes`` override
     run_pcluster's corpus sizes and run_sharded's ``fit`` / ``agree``
     (rehearsals).  Raises on the first failed check."""
     import torch
@@ -558,17 +576,19 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     lsh, by_path["lsh_search"] = run_lsh(db, centers, (gci, gki, gd), dev)
 
     # ---- phase 7: k-mer clustering --------------------------------------
-    cluster, by_path["hclust2_merge"] = run_cluster(db, fam, dev,
-                                                    centroid_n_log2)
+    cluster, by_path["hclust2_merge"], greedy_res = run_cluster(
+        db, fam, dev, centroid_n_log2)
 
     # ---- phase 8: the segmented engine ----------------------------------
     stream, by_path["stream_search"], seg_kernels = run_stream(
         dev, stream_n_log2, stream_c, cli, trace_out,
         lloyd=(db, centers, (gci, gki, gd), c_blk, main_path))
+    by_path["stream_sharded"] = stream["sharded"]["launches"]
     prune_seg, verify_seg = seg_kernels
 
     # ---- phase 9: the aligner and pcluster ---------------------------------
-    pcluster = run_pcluster(dev, cli=cli, **(pcluster_sizes or {}))
+    pcluster, pc_expect = run_pcluster(dev, cli=cli,
+                                       **(pcluster_sizes or {}))
     # neither TPU kernel lies on this path: its launches are read to show it
     by_path["pcluster"] = pcluster["cluster"]["tpu_kernel_launches"]
 
@@ -577,11 +597,18 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
         dev, db, centers, (gci, gki, gd), c_blk, **(sharded_sizes or {}))
     by_path.update(sh_launches)
 
+    # ---- phase 11: distributed clustering -------------------------------
+    dist_rec = run_distributed(
+        dev, db, greedy_res, pc_expect,
+        (pcluster_sizes or {}).get("gapped_log2", PC_GAPPED_LOG2))
+    del pc_expect
+
     if dev.type == "cuda":
         need = {"ivf_search": ("sq_distance_prune", "ptable_verify"),
                 "lsh_search": ("ptable_verify",),
                 "hclust2_merge": ("sq_distance_prune", "ptable_verify"),
                 "stream_search": ("sq_distance_prune", "ptable_verify"),
+                "stream_sharded": ("sq_distance_prune", "ptable_verify"),
                 "sharded_ivf": ("sq_distance_prune", "ptable_verify"),
                 "sharded_lsh": ("ptable_verify",)}
         for path, names in need.items():
@@ -636,7 +663,8 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                      "bound_by": lsh_by, "distinct_ids": lsh_distinct},
          "stream_segment": verify_seg},
     ]
-    return kernels, main_path, lsh, cluster, stream, pcluster, sharded_rec
+    return (kernels, main_path, lsh, cluster, stream, pcluster, sharded_rec,
+            dist_rec)
 
 
 def run_lsh(db, centers, truth, dev):
@@ -720,8 +748,8 @@ def pair_recall(labels, fam, n_pairs=200_000):
 
 def run_cluster(db, fam, dev, centroid_n_log2):
     """Phase 7: greedy clustering + center-distance merge on the whole
-    database, centroid clustering on a prefix.  Returns the record and
-    the kernel launches of the merge."""
+    database, centroid clustering on a prefix.  Returns the record, the
+    kernel launches of the merge and the greedy ClusterResult."""
     import torch
     from hsearch_tpu_torch.cluster import centroid, greedy, postprocess
     from hsearch_tpu_torch.core import embedding
@@ -807,7 +835,7 @@ def run_cluster(db, fam, dev, centroid_n_log2):
            "centroid_n": nc, "centroid_s": centroid_s,
            "centroid_clusters": len(members),
            "centroid_pair_recall": recall_centroid}
-    return rec, launches
+    return rec, launches, res
 
 
 def family_chunks(n, l, dev, seed=8, chunk=1 << SEG_LOG2, family_size=64):
@@ -1152,6 +1180,10 @@ def run_stream(dev, n_log2, n_centers, cli, trace_out, lloyd):
     launches = ck.launch_counts()
     print(f"phase8 launches {launches}", flush=True)
 
+    # ---- phase 8b: the same index over db shards of the card ------------
+    rec["sharded"] = run_stream_sharded(dev, sidx, centers, truth, kb,
+                                        b_max, ref, cb_for, res_rec)
+
     # checkpoint: segivf save and load with a budget
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "seg.npz")
@@ -1213,6 +1245,97 @@ def run_stream(dev, n_log2, n_centers, cli, trace_out, lloyd):
         rec["cli"] = run_stream_cli(db[rows], centers[:STREAM_CLI_Q], dev,
                                     m // 4)
     return rec, launches, (prune_seg, verify_seg)
+
+
+def run_stream_sharded(dev, sidx, centers, truth, kb, b_max, ref, cb_for,
+                       residency):
+    """Phase 8b: parallel/stream_sharded.py on phase 8's index, centers and
+    oracle.  Over SH_DB logical db shards of the card (one wave): at kb =
+    a segment's block count, retry off, the oracle's hits; at phase 8's
+    kb, retry off, ``search_segmented``'s hits (``ref``), its recall, ms
+    per call (3 calls, streamed and resident), launches per call and each
+    wave's upload ms; at kb = STREAM_KB0 with the retry on, the oracle's
+    hits.  Over 2 shards (2 waves) at phase 8's kb: ``ref`` again.  The
+    kernel launches are counted from 0 over the whole phase."""
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+    from hsearch_tpu_torch.parallel import mesh as mesh_lib, stream_sharded
+    from hsearch_tpu_torch.search import evaluate, stream
+    ns = sidx.num_segments
+    rec: dict = {"phase8_streamed_ms_per_call":
+                 residency[f"0/{ns}"]["ms_per_call"],
+                 "phase8_resident_ms_per_call":
+                 residency[f"{ns}/{ns}"]["ms_per_call"]}
+    stream.set_residency(sidx, 0)
+
+    def search(ndb, k, retry, st=None):
+        return stream_sharded.search_segmented_sharded(
+            sidx, centers, RADIUS,
+            mesh=mesh_lib.make_mesh(ndb, data=1, devices=[dev] * ndb),
+            k_blocks=k, max_hits=MAX_HITS, center_block=cb_for(k),
+            retry_overflow=retry, stats_out=st)
+
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    st: dict = {}
+    rec["exact_max_d2_rel_err"] = _d2_agree(search(SH_DB, b_max, False, st),
+                                            truth)
+    rec["exact"] = {"kb": b_max, "s": time.perf_counter() - t0,
+                    **{k: st[k] for k in ("waves", "over_blocks",
+                                          "over_hits", "wave_upload_ms")}}
+    print(f"phase8b {SH_DB} shards, kb={b_max} (every block), retry off: "
+          f"== oracle, {json.dumps(rec['exact'])}", flush=True)
+    # phase 8's kb: 3 timed calls, fully streamed and then resident
+    for label, budget in (("streamed", 0), ("resident", sum(
+            stream.segment_device_bytes(s) for s in sidx.segments))):
+        stream.set_residency(sidx, budget)
+        before = ck.launch_counts()
+        calls, ups = [], []
+        for _ in range(3):
+            st = {}
+            _sync(dev)
+            t0 = time.perf_counter()
+            got = search(SH_DB, kb, False, st)
+            calls.append((time.perf_counter() - t0) * 1e3)
+            ups.append(st["wave_upload_ms"])
+            if _pairs(got[0], got[1]) != ref:
+                raise AssertionError(f"stream_sharded ({label}) at kb={kb} "
+                                     "differs from search_segmented")
+        after = ck.launch_counts()
+        rec[label] = {"kb": kb, "ms_per_call": calls,
+                      "wave_upload_ms": ups, "waves": st["waves"],
+                      "launches_per_call": {k: (after[k] - before[k]) / 3
+                                            for k in after},
+                      "recall": evaluate.recall_from_indices(
+                          *truth, got[0], got[1], RADIUS).recall,
+                      "over_blocks": st["over_blocks"]}
+        print(f"phase8b {SH_DB} shards, kb={kb}, retry off, {label}: == "
+              f"search_segmented, {json.dumps(rec[label])}", flush=True)
+    stream.set_residency(sidx, 0)
+    # the retry ladder from the first rung
+    st = {}
+    t0 = time.perf_counter()
+    rec["retry_max_d2_rel_err"] = _d2_agree(
+        search(SH_DB, STREAM_KB0, True, st), truth)
+    rec["retry"] = {"kb": STREAM_KB0, "s": time.perf_counter() - t0,
+                    **{k: st[k] for k in ("retried", "max_alive",
+                                          "over_blocks", "over_hits")}}
+    print(f"phase8b {SH_DB} shards, kb={STREAM_KB0}, retry on: == oracle, "
+          f"{json.dumps(rec['retry'])}", flush=True)
+    # 2 shards: 2 waves
+    st = {}
+    t0 = time.perf_counter()
+    got = search(2, kb, False, st)
+    if _pairs(got[0], got[1]) != ref:
+        raise AssertionError(f"stream_sharded over 2 shards at kb={kb} "
+                             "differs from search_segmented")
+    rec["two_shards"] = {"kb": kb, "ms": (time.perf_counter() - t0) * 1e3,
+                         "waves": st["waves"],
+                         "wave_upload_ms": st["wave_upload_ms"]}
+    rec["launches"] = ck.launch_counts()
+    print(f"phase8b 2 shards, kb={kb}: == search_segmented, "
+          f"{json.dumps(rec['two_shards'])}; launches {rec['launches']}",
+          flush=True)
+    return rec
 
 
 def protein_families(n, plen=120, seed=0):
@@ -1325,12 +1448,14 @@ def compare_extension(searcher, dev):
 def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
                  cross_log2=PC_CROSS_LOG2, long_n=PC_LONG_N,
                  profile_n=PC_PROFILE_N, cli=True):
-    """Phase 9: the aligner and pcluster.  Returns the record."""
+    """Phase 9: the aligner and pcluster.  Returns the record and, for phase
+    11b, the 100,000-protein run's KLSH draw, labels, pre-groups and hit
+    rows."""
     import dataclasses
 
     import torch
     from hsearch_tpu_torch.align import gapped_device, pipeline
-    from hsearch_tpu_torch.cluster import pcluster
+    from hsearch_tpu_torch.cluster import _mp_pcluster_check, pcluster
     from hsearch_tpu_torch.ops import cuda_kernels as ck
     from hsearch_tpu_torch.utils import profiling
     rec: dict = {}
@@ -1362,6 +1487,14 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
         raise AssertionError(f"family-pair recall {recall} < "
                              f"{PC_RECALL_GATE}")
 
+    kp = pcluster.klsh_init(torch.Generator().manual_seed(0),
+                            bits=PC_BITS, sigma=PC_SIGMA)
+    expect = {"seq": np.asarray(db.seq), "starts": np.asarray(db.starts),
+              "w": kp.w.numpy()[None], "t": kp.t.numpy()[None],
+              "b": kp.b.numpy()[None], "labels": res.labels,
+              "pre_groups": np.concatenate(res.pre_groups),
+              "pre_group_sizes": [len(g) for g in res.pre_groups],
+              "hit_rows": _mp_pcluster_check._hit_rows(res.hits)}
     rec["seed_checkpoint"] = seed_checkpoint(db, res.pre_groups)
     print(f"phase9 seed checkpoint: {json.dumps(rec['seed_checkpoint'])}",
           flush=True)
@@ -1458,7 +1591,7 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
     if cli:
         rec["cli"] = run_pcluster_cli(protein_families(1 << PC_CLI_LOG2)[0],
                                       dev)
-    return rec
+    return rec, expect
 
 
 def seed_checkpoint(db, pre_groups, n_probe=2000):
@@ -1719,6 +1852,129 @@ def run_sharded(dev, db, centers, truth, c_blk, fit=FIT, agree=AGREE):
     return rec, launches
 
 
+def _mp_cluster(module, env, nproc=2):
+    """A local ``module`` cluster of nproc processes whose ranks compute
+    where ``env`` says (gloo collectives on the CPU: NCCL refuses two ranks
+    on one card).  Returns (wall seconds, each rank's MP_CHECK_OK line)."""
+    from hsearch_tpu_torch.parallel import _mp_check
+    t0 = time.perf_counter()
+    outs = _mp_check.run_local_cluster(nproc=nproc, ndev_per_proc=1,
+                                       timeout=600, module=module,
+                                       extra_env=env)
+    return time.perf_counter() - t0, [
+        next(ln for ln in o.splitlines() if ln.startswith("MP_CHECK_OK"))
+        for o in outs]
+
+
+def _field(line, key):
+    return line.split(f"{key}=")[1].split()[0]
+
+
+def run_distributed(dev, db, greedy_res, pc_expect, group_log2):
+    """Phase 11: distributed clustering.  11a: phase 7's k-mers and config
+    through a 2-process greedy_dist cluster computing on ``dev``, bit for
+    bit phase 7's parent / merged; hclust2 --merge-radius as a world of
+    one (NCCL on the card) writing the file of the run without --dist-*.
+    11b: 2-process pcluster_dist clusters on ``dev``: phase 9's corpus and
+    KLSH draw (query mode) against phase 9's labels, pre-groups and hit
+    rows; a 2^group_log2-protein corpus of the same recipe at bits 16,
+    sigma 0.2, two tables, against a single-process run in each rank.
+    Returns the record."""
+    import socket
+
+    import torch
+    from hsearch_tpu_torch.cluster import pcluster
+    rec: dict = {}
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        # 11a: greedy_dist against phase 7
+        np.save(path("kmers.npy"), db.astype(np.int8))
+        np.savez(path("greedy.npz"), config=[16, 8, 50.0, RADIUS], seed=1,
+                 parent=greedy_res.parent, merged=greedy_res.merged)
+        secs, lines = _mp_cluster(
+            "hsearch_tpu_torch.cluster._mp_greedy_check",
+            {"GREEDY_CHECK_DEVICE": dev.type,
+             "GREEDY_CHECK_KMERS": path("kmers.npy"),
+             "GREEDY_CHECK_NPZ": path("greedy.npz"),
+             "GREEDY_CHECK_MERGE_RADIUS": 0})
+        rec["greedy"] = {"n": int(len(db)), "processes": 2, "wall_s": secs,
+                         "rank_s": [float(_field(ln, "seconds"))
+                                    for ln in lines],
+                         # each rank's single-process run, its first
+                         # (with the warm-up), before the distributed one
+                         "rank_single_first_s": [
+                             float(_field(ln, "ref_seconds"))
+                             for ln in lines],
+                         "clusters": int(_field(lines[0], "clusters"))}
+        print(f"phase11a greedy_dist, 2 processes on {dev.type} == phase 7 "
+              f"bit for bit: {json.dumps(rec['greedy'])}", flush=True)
+        rows = db[:1 << DIST_CLI_LOG2]
+        _write_kmers_fasta(path("k.fasta"), "k", rows)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        files, cli_s = {}, {}
+        for name, extra in (("single", []), ("world_of_one", [
+                "--dist-nproc", "1", "--dist-pid", "0",
+                "--dist-coordinator", f"127.0.0.1:{port}"])):
+            out = path(f"{name}.txt")
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "-m", "hsearch_tpu_torch",
+                            "hclust2", "-d", path("k.fasta"), "-o", out,
+                            "-l", str(L), "-k", "16", "-L", "8", "-T",
+                            str(RADIUS), "--merge-radius", str(RADIUS),
+                            "--device", dev.type, *extra], check=True,
+                           env=env, cwd=tmp, timeout=300)
+            cli_s[name] = time.perf_counter() - t0
+            with open(out) as f:
+                files[name] = f.read()
+        if files["world_of_one"] != files["single"]:
+            raise AssertionError("hclust2 --dist-nproc 1 wrote another file "
+                                 "than hclust2")
+        rec["cli"] = {"rows": len(rows), "seconds": cli_s,
+                      "clusters": files["single"].count("#cluster")}
+        print(f"phase11a hclust2 --merge-radius, world of one == without "
+              f"--dist-*: {json.dumps(rec['cli'])}", flush=True)
+
+        # 11b: pcluster_dist, query mode against phase 9
+        np.savez(path("pc9_db.npz"), seq=pc_expect["seq"],
+                 starts=pc_expect["starts"])
+        np.savez(path("pc9.npz"), **{k: v for k, v in pc_expect.items()
+                                     if k not in ("seq", "starts")})
+        # 11b: group mode against a single-process run in each rank
+        gdb, _ = protein_families(1 << group_log2)
+        gen = torch.Generator().manual_seed(0)
+        kps = [pcluster.klsh_init(gen, bits=16, sigma=0.2) for _ in range(2)]
+        np.savez(path("grp_db.npz"), seq=gdb.seq, starts=gdb.starts)
+        np.savez(path("grp.npz"), **{f: np.stack([getattr(k, f).numpy()
+                                                  for k in kps])
+                                     for f in ("w", "t", "b")})
+        for tag, corpus, npz in (("query_phase9", "pc9_db", "pc9"),
+                                 ("two_tables", "grp_db", "grp")):
+            secs, lines = _mp_cluster(
+                "hsearch_tpu_torch.cluster._mp_pcluster_check",
+                {"PCLUSTER_CHECK_DEVICE": dev.type,
+                 "PCLUSTER_CHECK_DB": path(f"{corpus}.npz"),
+                 "PCLUSTER_CHECK_NPZ": path(f"{npz}.npz")})
+            rec[tag] = {
+                "proteins": int(len(np.load(path(f"{corpus}.npz"))["starts"])
+                                - 1),
+                "processes": 2, "wall_s": secs,
+                "rank_s": [float(_field(ln, "seconds")) for ln in lines],
+                "rank_single_first_s": [_field(ln, "ref_seconds")
+                                        for ln in lines],
+                "hits_local": [_field(ln, "hits_local") for ln in lines],
+                "modes": _field(lines[0], "modes").split(",")}
+            print(f"phase11b pcluster_dist {tag}, 2 processes on "
+                  f"{dev.type} == single process: {json.dumps(rec[tag])}",
+                  flush=True)
+    return rec
+
+
 def run_pcluster_cli(db, dev):
     """python -m hsearch_tpu_torch pcluster on a small FASTA in a child
     process: .m8 rows of 12 fields, an .aln block per hit up to
@@ -1940,8 +2196,9 @@ def main(argv=None) -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
           f" x{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    kernels, main_path, lsh, cluster, stream, pcluster, sharded = run(
-        "cuda", stream_n_log2=args.stream_n_log2, trace_out=args.trace_out)
+    (kernels, main_path, lsh, cluster, stream, pcluster, sharded,
+     distributed) = run("cuda", stream_n_log2=args.stream_n_log2,
+                        trace_out=args.trace_out)
     print("kernels " + json.dumps(kernels))
     print("main_path " + json.dumps(main_path))
     print("lsh " + json.dumps(lsh))
@@ -1949,6 +2206,7 @@ def main(argv=None) -> int:
     print("stream " + json.dumps(stream))
     print("pcluster " + json.dumps(pcluster))
     print("sharded " + json.dumps(sharded))
+    print("distributed " + json.dumps(distributed))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))

@@ -35,7 +35,9 @@ numpy.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import sys
 
 import numpy as np
@@ -309,22 +311,68 @@ def _head_first_groups(lab: np.ndarray) -> list[np.ndarray]:
     return groups
 
 
-def cmd_hclust2(args):
+# a collective's wait: query-mode pcluster processes drift apart by
+# minutes between two exchanges
+_DIST_TIMEOUT_S = 4 * 3600
+
+
+@contextlib.contextmanager
+def _process_group(args):
+    """``--dist-nproc N --dist-pid P --dist-coordinator host:port``: join
+    the N-process group (NCCL with ``--device cuda``, gloo with ``cpu``)
+    for the block and tear it down after; yields the process index, or
+    None without the flags.  Without ``-t`` a distributed process takes an
+    even share of the cores for torch's host threads."""
     import torch
 
-    from .cluster import greedy
+    from .parallel import multihost
+    given = {"--dist-nproc": args.dist_nproc, "--dist-pid": args.dist_pid,
+             "--dist-coordinator": args.dist_coordinator}
+    if all(v is None for v in given.values()):
+        if args.threads:
+            torch.set_num_threads(args.threads)
+        yield None
+        return
+    missing = [k for k, v in given.items() if v is None]
+    if missing:
+        raise SystemExit(f"{args.tool}: distributed clustering needs "
+                         "--dist-nproc, --dist-pid and --dist-coordinator "
+                         f"host:port (no auto-detect); missing "
+                         f"{', '.join(missing)}")
+    if not 0 <= args.dist_pid < args.dist_nproc:
+        raise SystemExit(f"{args.tool}: --dist-pid {args.dist_pid} is not "
+                         f"in 0..{args.dist_nproc - 1}")
+    torch.set_num_threads(args.threads or max(
+        1, (os.cpu_count() or 1) // args.dist_nproc))
+    multihost.initialize(args.dist_coordinator, args.dist_nproc,
+                         args.dist_pid, device=args.device,
+                         timeout_s=_DIST_TIMEOUT_S)
+    try:
+        yield args.dist_pid
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def cmd_hclust2(args):
+    with _process_group(args) as pid:
+        _hclust2(args, pid)
+
+
+def _hclust2(args, pid):
+    import torch
+
+    from .cluster import greedy, greedy_dist
     from .core import alphabet, io as hio
-    if any(v is not None for v in (args.dist_nproc, args.dist_pid,
-                                   args.dist_coordinator)):
-        raise SystemExit(f"{args.tool}: --dist-nproc/--dist-pid/"
-                         "--dist-coordinator (distributed clustering) are "
-                         "not yet ported (ROADMAP A.10d)")
     db = hio.read_fasta(args.database, seed=args.seed)
     km = _kmer_matrix(db, args.kmer_len)
     cfg = greedy.ClusterConfig(hash_k=args.hash_k, hash_l=args.hash_l,
                                w=args.width, radius=args.radius)
-    res = greedy.cluster_greedy(km, torch.Generator().manual_seed(args.seed),
-                                cfg, device=args.device)
+    gen = torch.Generator().manual_seed(args.seed)
+    if pid is None:
+        res = greedy.cluster_greedy(km, gen, cfg, device=args.device)
+    else:
+        res = greedy_dist.cluster_greedy_distributed(km, gen, cfg,
+                                                     device=args.device)
     if args.merge_radius:
         # hclust v1's centroid-merge stage (hclust.cpp:186-235) on the
         # greedy labels: union clusters whose center k-mers lie within
@@ -339,6 +387,9 @@ def cmd_hclust2(args):
         groups = _head_first_groups(lab)
     else:
         groups = res.clusters()
+    if pid:
+        # every process holds the same labels; process 0 writes them
+        return
     # member lines are the k-mer sequences: the post-processing tools read
     # them back as sequences (centerDistanceSmapling.cpp:119,146)
     strs = alphabet.decode_all(km)
@@ -370,34 +421,40 @@ def cmd_pcluster(args):
     --gapped, refinement under the same group statistics) -> union-find:
     ``<out>.m8``, ``<out>.aln`` (the first --max-aln hits) and
     ``<out>.clusters``."""
+    with _process_group(args) as pid:
+        _pcluster(args, pid)
+
+
+def _pcluster(args, pid):
+    """With ``--dist-*`` each process writes the hits it aligned to
+    ``<out>.p<pid>.m8`` / ``.aln``; process 0 writes ``<out>.clusters``."""
     import torch
 
     from .align import pipeline as apipe
-    from .cluster import pcluster
+    from .cluster import pcluster, pcluster_dist
     from .core import io as hio
-    if any(v is not None for v in (args.dist_nproc, args.dist_pid,
-                                   args.dist_coordinator)):
-        raise SystemExit("pcluster: --dist-nproc/--dist-pid/"
-                         "--dist-coordinator (distributed clustering) are "
-                         "not yet ported (ROADMAP A.10d)")
-    if args.threads:
-        torch.set_num_threads(args.threads)
     db = hio.read_fasta(args.database, seed=args.seed)
     params = apipe.SearchParams(evalue_threshold=args.evalue,
                                 max_aln_per_query=args.max_aln,
                                 max_m8_per_query=args.max_hit)
-    res = pcluster.cluster_proteins(
-        db, torch.Generator().manual_seed(args.seed), params,
-        cluster_evalue=args.cluster_evalue, tables=args.tables,
-        bits=args.bits, sigma=args.sigma, gapped=args.gapped,
-        device=args.device)
-    apipe.write_m8(args.output + ".m8", res.hits, db.names, db.names)
-    apipe.write_aln(args.output + ".aln", res.hits[:args.max_aln],
+    run = pcluster.cluster_proteins if pid is None \
+        else pcluster_dist.cluster_proteins_distributed
+    res = run(db, torch.Generator().manual_seed(args.seed), params,
+              cluster_evalue=args.cluster_evalue, tables=args.tables,
+              bits=args.bits, sigma=args.sigma, gapped=args.gapped,
+              device=args.device)
+    shard = "" if pid is None else f".p{pid}"
+    apipe.write_m8(args.output + shard + ".m8", res.hits, db.names, db.names)
+    apipe.write_aln(args.output + shard + ".aln", res.hits[:args.max_aln],
                     db.names, db.names)
-    clusters = [[db.names[int(i)] for i in g] for g in res.groups()]
-    hio.write_clusters(args.output + ".clusters", clusters, style="hclust2")
-    print(f"[{len(clusters)} clusters, {len(res.hits)} hits -> "
-          f"{args.output}.*]", file=sys.stderr)
+    n_clusters = 0
+    if not pid:
+        clusters = [[db.names[int(i)] for i in g] for g in res.groups()]
+        n_clusters = len(clusters)
+        hio.write_clusters(args.output + ".clusters", clusters,
+                           style="hclust2")
+    print(f"[{n_clusters} clusters, {len(res.hits)} hits -> "
+          f"{args.output}{shard}.*]", file=sys.stderr)
 
 
 def cmd_postprocess(args):
@@ -669,6 +726,19 @@ def build_parser() -> argparse.ArgumentParser:
         q.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                        help="device to run on (cpu must be asked for)")
 
+    THREADS_HELP = ("torch host threads for this process (default: torch's;"
+                    " with --dist-nproc N, an even 1/N share of the cores)")
+
+    def dist_flags(q):
+        q.add_argument("--dist-nproc", type=int, default=None,
+                       help="run distributed over N processes, one started "
+                            "per process (torch.distributed)")
+        q.add_argument("--dist-pid", type=int, default=None,
+                       help="this process's index, 0..N-1")
+        q.add_argument("--dist-coordinator", default=None,
+                       help="host:port of process 0's rendezvous, e.g. "
+                            "127.0.0.1:29500 (required: no auto-detect)")
+
     def common_lsh(q):
         q.add_argument("-k", "--hash-k", type=int, default=4)
         q.add_argument("-L", "--hash-l", type=int, default=4)
@@ -761,15 +831,11 @@ def build_parser() -> argparse.ArgumentParser:
         q.add_argument("-l", "--kmer-len", type=int, default=25)
         common_lsh(q)
         if tool != "hclust":
-            q.add_argument("--dist-nproc", type=int, default=None,
-                           help="distributed clustering (not yet ported)")
-            q.add_argument("--dist-pid", type=int, default=None,
-                           help="distributed clustering (not yet ported)")
-            q.add_argument("--dist-coordinator", default=None,
-                           help="distributed clustering (not yet ported)")
+            dist_flags(q)
         q.add_argument("-t", "--threads", type=int, default=None,
                        help="accepted for the JAX package's interface; "
-                            "no effect here")
+                            "no effect here" if tool == "hclust" else
+                            THREADS_HELP)
         if tool != "hclust":
             q.add_argument("--merge-radius", type=float, default=None,
                            help="post-merge pass: union clusters whose "
@@ -802,15 +868,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="re-align strong hits with the banded gapped "
                         "aligner (affine gaps + traceback)")
     q.add_argument("--seed", type=int, default=0)
-    q.add_argument("--dist-nproc", type=int, default=None,
-                   help="distributed clustering (not yet ported)")
-    q.add_argument("--dist-pid", type=int, default=None,
-                   help="distributed clustering (not yet ported)")
-    q.add_argument("--dist-coordinator", default=None,
-                   help="distributed clustering (not yet ported)")
+    dist_flags(q)
     q.add_argument("-t", "--threads", type=int, default=None,
-                   help="torch host threads for this process (default: "
-                        "torch's)")
+                   help=THREADS_HELP)
     device_flag(q)
     q.set_defaults(func=cmd_pcluster)
 

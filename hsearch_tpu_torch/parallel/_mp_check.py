@@ -133,11 +133,12 @@ def child_main(pid: int, nproc: int, port: int) -> None:
 def run_local_cluster(nproc: int = 2, ndev_per_proc: int = 2,
                       timeout: float = 120.0,
                       module: str = "hsearch_tpu_torch.parallel._mp_check",
-                      extra_env: dict | None = None) -> None:
-    """Spawn an nproc-process gloo CPU cluster running ``module``'s
-    child_main (via ``python -m module pid nproc port``); raises on any
-    nonzero exit or when ``timeout`` seconds pass.  ``extra_env`` sets
-    child environment variables (workload knobs such as MP_CHECK_N)."""
+                      extra_env: dict | None = None) -> list[str]:
+    """Spawn an nproc-process gloo cluster running ``module``'s child_main
+    (via ``python -m module pid nproc port``); raises on any nonzero exit
+    or when ``timeout`` seconds pass, else returns each process's output.
+    ``extra_env`` sets child environment variables (workload knobs such
+    as MP_CHECK_N, or a child's compute device)."""
     import socket
     import subprocess
 
@@ -180,6 +181,7 @@ def run_local_cluster(nproc: int = 2, ndev_per_proc: int = 2,
     for i, out in enumerate(outs):
         if f"MP_CHECK_OK p{i}" not in out:
             raise RuntimeError(f"process {i} did not report: {out}")
+    return outs
 
 
 if __name__ == "__main__":

@@ -468,20 +468,8 @@ def search_ivf(index: ShardedIVFIndex, centers: np.ndarray, radius: float,
     live blocks than that on some shard, or more hits than max_hits, are
     counted: into ``stats_out`` as ``over_blocks`` / ``over_hits`` when
     given, else as warnings."""
-    centers = np.asarray(centers)
-    is_kmers = np.issubdtype(centers.dtype, np.integer)
-    if is_kmers:
-        motif._check_kmers(centers, "centers")
-    arr = centers.astype(np.int32 if is_kmers else np.float32)
-    emb = embedding.embed_kmers(arr) if is_kmers else arr
-    r = np.float32(radius)
-
-    def per_shard(s, j, cblk, eblk):
-        return ivf._search_block_hits(s, cblk, eblk, r, k_blocks,
-                                      index.max_hits)
-
-    ci, ki, dd, (n_hits, n_alive) = _search_sharded(
-        index, arr, emb, center_block, per_shard, gather, 2)
+    ci, ki, dd, n_hits, n_alive = _search_ivf_flags(
+        index, centers, radius, k_blocks, center_block, gather)
     over_blocks = int((n_alive > k_blocks).sum())
     over_hits = int((n_hits > index.max_hits).sum())
     if stats_out is not None:
@@ -496,6 +484,29 @@ def search_ivf(index: ShardedIVFIndex, centers: np.ndarray, radius: float,
             warnings.warn(f"{over_hits} centers filled a shard's max_hits="
                           f"{index.max_hits} slots; nearest hits kept")
     return ci, ki, dd
+
+
+def _search_ivf_flags(index: ShardedIVFIndex, centers: np.ndarray,
+                      radius: float, k_blocks: int, center_block: int,
+                      gather=None):
+    """``search_ivf``'s search, returning beside the hits each center's
+    (C,) most hits and most live blocks on any shard: what an overflow
+    retry needs to pick the centers to re-search."""
+    centers = np.asarray(centers)
+    is_kmers = np.issubdtype(centers.dtype, np.integer)
+    if is_kmers:
+        motif._check_kmers(centers, "centers")
+    arr = centers.astype(np.int32 if is_kmers else np.float32)
+    emb = embedding.embed_kmers(arr) if is_kmers else arr
+    r = np.float32(radius)
+
+    def per_shard(s, j, cblk, eblk):
+        return ivf._search_block_hits(s, cblk, eblk, r, k_blocks,
+                                      index.max_hits)
+
+    ci, ki, dd, (n_hits, n_alive) = _search_sharded(
+        index, arr, emb, center_block, per_shard, gather, 2)
+    return ci, ki, dd, n_hits, n_alive
 
 
 def exact_topk(db_kmers: np.ndarray, centers: np.ndarray, k: int,

@@ -2,6 +2,8 @@
 tensor): output files equal to hsearch_tpu's on the same inputs, and
 indexes that either package saves served by the other."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -10,6 +12,7 @@ from hsearch_tpu.core import io as jio
 from hsearch_tpu_torch import cli
 
 AA = "ARNDCQEGHILKMFPSTWYV"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -197,19 +200,97 @@ def test_pcluster_files_equal_jax(tmp_path, protein_families, extra):
     assert clusters.count("#clusterid") == 4
 
 
-def test_pcluster_distributed_exits_clearly(tmp_path, protein_families):
-    with pytest.raises(SystemExit, match="not yet ported.*ROADMAP A.10"):
-        cli.main(["pcluster", "-d", protein_families, "-o",
-                  str(tmp_path / "x"), "--dist-nproc", "2", "--device",
+def _run_distributed(tool_args, nproc=2, timeout=120):
+    """``python -m hsearch_tpu_torch <tool_args> --dist-*`` as nproc
+    processes of a local gloo group (--device cpu)."""
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hsearch_tpu_torch", *tool_args,
+         "--dist-nproc", str(nproc), "--dist-pid", str(p),
+         "--dist-coordinator", f"127.0.0.1:{port}", "--device", "cpu"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for p in range(nproc)]
+    try:
+        outs = [pr.communicate(timeout=timeout)[0] for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+    assert all(pr.returncode == 0 for pr in procs), outs
+    return outs
+
+
+DIST_ERRORS = {
+    "hclust2_no_coordinator": (["hclust2", "-l", "10", "--dist-nproc", "2",
+                                "--dist-pid", "0"], "--dist-coordinator"),
+    "hclust2_pid_alone": (["hclust2", "-l", "10", "--dist-pid", "2"],
+                          "--dist-nproc, --dist-coordinator"),
+    "pcluster_no_coordinator": (["pcluster", "--dist-nproc", "2",
+                                 "--dist-pid", "1"], "--dist-coordinator"),
+    "pcluster_no_pid": (["pcluster", "--dist-nproc", "2",
+                         "--dist-coordinator", "127.0.0.1:1"],
+                        "--dist-pid"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DIST_ERRORS))
+def test_distributed_flags_exit_clearly(tmp_path, inputs, protein_families,
+                                        case):
+    args, missing = DIST_ERRORS[case]
+    db = protein_families if args[0] == "pcluster" else inputs["db"]
+    with pytest.raises(SystemExit, match=f"missing {missing}$"):
+        cli.main([*args, "-d", db, "-o", str(tmp_path / "x"), "--device",
                   "cpu"])
 
 
+def test_hclust2_distributed_equals_single_and_jax(tmp_path, families):
+    """hclust2 --merge-radius as 2 gloo processes writes the file of the
+    one-process run and of the JAX CLI (process 0 writes it)."""
+    path, merge_r = families
+    args = ["hclust2", "-k", "8", "-L", "2", "-T", "1.0", "--merge-radius",
+            str(merge_r), "-d", path, "-l", "10"]
+    outs = {}
+    for name in ("jax", "torch", "dist"):
+        out = str(tmp_path / f"{name}.clusters")
+        if name == "dist":
+            _run_distributed([*args, "-o", out])
+        elif name == "jax":
+            jcli.main([*args, "-o", out])
+        else:
+            cli.main([*args, "-o", out, "--device", "cpu"])
+        with open(out) as f:
+            outs[name] = f.read()
+    assert outs["dist"] == outs["torch"] == outs["jax"]
+    assert outs["dist"].count("#cluster") == 6
 
-@pytest.mark.parametrize("flag", ["--dist-nproc", "--dist-pid"])
-def test_distributed_clustering_exits_clearly(tmp_path, inputs, flag):
-    with pytest.raises(SystemExit, match="not yet ported.*ROADMAP A.10"):
-        cli.main(["hclust2", "-d", inputs["db"], "-l", "10", "-o",
-                  str(tmp_path / "x.txt"), flag, "2", "--device", "cpu"])
+
+def test_pcluster_distributed_equals_single(tmp_path, protein_families):
+    """pcluster as 2 gloo processes: the m8 lines of .p0.m8 and .p1.m8
+    together are the one-process run's, and .clusters is identical."""
+    single, dist = str(tmp_path / "one"), str(tmp_path / "two")
+    cli.main(["pcluster", "-d", protein_families, "-o", single, "--device",
+              "cpu"])
+    _run_distributed(["pcluster", "-d", protein_families, "-o", dist])
+    lines = []
+    for p in (0, 1):
+        with open(f"{dist}.p{p}.m8") as f:
+            part = f.read().splitlines()
+        assert part            # both processes aligned queries
+        lines += part
+    with open(single + ".m8") as f:
+        want = f.read().splitlines()
+    assert sorted(lines) == sorted(want) and len(want) > 30
+    with open(single + ".clusters") as f, open(dist + ".clusters") as g:
+        assert f.read() == g.read()
+    assert not os.path.exists(dist + ".m8")
 
 
 # ---- the lsh engine ---------------------------------------------------------

@@ -12,10 +12,11 @@ import torch
 
 from hsearch_tpu_torch import cli, metric
 from hsearch_tpu_torch.align import pipeline
-from hsearch_tpu_torch.cluster import centroid, greedy, pcluster, postprocess
+from hsearch_tpu_torch.cluster import centroid, greedy, greedy_dist
+from hsearch_tpu_torch.cluster import pcluster, pcluster_dist, postprocess
 from hsearch_tpu_torch.core import io as tio
 from hsearch_tpu_torch.lsh import tuning
-from hsearch_tpu_torch.parallel import mesh, multihost, train
+from hsearch_tpu_torch.parallel import mesh, multihost, stream_sharded, train
 from hsearch_tpu_torch.search import exact, ivf, motif, stream
 from hsearch_tpu_torch.utils import checkpoint
 
@@ -48,9 +49,11 @@ def test_imports_without_jax_or_reference():
     # every module was found: lsh/, cluster/ (pcluster included),
     # search/stream, utils/{stats,profiling}, core/{dataprep,orf,stockholm,
     # mds}, align/ (reduced, blast_stat, hostops, seed_index, extend,
-    # gapped_device, pipeline), metric and parallel/ (mesh, sharded,
-    # multihost, _mp_check, train)
-    assert int(res.stdout.split()[-1]) >= 52
+    # gapped_device, pipeline), metric, parallel/ (mesh, sharded,
+    # multihost, _mp_check, train, stream_sharded) and the distributed
+    # clustering (cluster/{greedy_dist, pcluster_dist, _mp_greedy_check,
+    # _mp_pcluster_check})
+    assert int(res.stdout.split()[-1]) >= 57
 
 
 def _proteins(db):
@@ -96,6 +99,16 @@ ENTRY_POINTS = {
     "multihost.host_mesh": lambda db: multihost.host_mesh(),
     "multihost.initialize": lambda db: multihost.initialize(
         "127.0.0.1:1", 1, 0),
+    "greedy_dist.cluster_greedy_distributed":
+        lambda db: greedy_dist.cluster_greedy_distributed(
+            db, torch.Generator()),
+    "pcluster_dist.cluster_proteins_distributed":
+        lambda db: pcluster_dist.cluster_proteins_distributed(
+            _proteins(db), torch.Generator()),
+    "stream_sharded.search_segmented_sharded":
+        lambda db: stream_sharded.search_segmented_sharded(
+            stream.build_segmented(db, torch.Generator(), segment_points=8,
+                                   block_size=4, device="cpu"), db[:2], 5.0),
     "stream.upload_segment": lambda db: stream.upload_segment(
         stream.host_segment_from_arrays(
             db.reshape(4, -1).astype(np.int8),
