@@ -26,10 +26,11 @@ Phases, each of which fails the run on error:
      same (torch.cdist for prune's distances), and, for verify, the time
      of the candidate gather it made unnecessary;
   3. the IVF search at the bench workload (N = 2^20 k-mers, L = 25,
-     4096 centers, R = 35): build_index, the exact oracle, ivf.search up
-     the k_blocks ladder 128 -> 256 -> 512 until weighted recall >= 0.99,
-     then 3 timed searches; kernel launch counts are read around it,
-     and torch.profiler gives one search call's device time by kernel;
+     4096 centers, R = 35): build_index, then hsearch_tpu_torch.bench's
+     run_ladder (the exact oracle, ivf.search up the k_blocks ladder 128
+     -> 256 -> 512 until weighted recall >= 0.99, then 3 timed searches);
+     kernel launch counts are read around it, and torch.profiler gives
+     one search call's device time by kernel;
   4. the exactness contract (retry_overflow=True equals the oracle) on a
      2^16-point prefix;
   5. the CLI: motif-search --engine ivf equals motif-search-exact,
@@ -114,10 +115,16 @@ Phases, each of which fails the run on error:
      (query mode) == phase 9's labels, pre-groups and hit rows, and on a
      2^14-protein corpus at bits 16, sigma 0.2, two tables == one process;
      seconds, each rank's hits and the partition modes.
+ 12. the port's measurement entry points as subprocesses: ``python -m
+     hsearch_tpu_torch.bench`` at its default size (its last stdout line
+     the four-key JSON, its kb phase 3's, recall >= 0.99, both kernels
+     launched in each timed call), then every script of
+     hsearch_tpu_torch/examples once at a small size (EXAMPLE_RUNS, 4 at
+     a time), each of which must exit 0; their wall seconds.
 
 Output: free-form progress lines; ``kernels``, ``main_path``, ``lsh``,
-``cluster``, ``stream``, ``pcluster``, ``sharded`` and ``distributed``
-lines; the nvidia-smi name/power line; one JSON object ``{"kernels":
+``cluster``, ``stream``, ``pcluster``, ``sharded``, ``distributed`` and
+``examples`` lines; the nvidia-smi name/power line; one JSON object ``{"kernels":
 [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -179,27 +186,30 @@ SH_TOPK = (16, 256, 16)
 DIST_CLI_LOG2 = 14
 FIT = dict(dim=8, steps=2000, batch=4096, kmer_len=1, lr=1e-1, seed=0)
 AGREE = (8, 1000, 100)
-
-
-def protein_like_db(rng, n, l, family_size=64, query_n=256,
-                    return_families=False):
-    """Motif families (centers + Poisson-flip members): the bench workload
-    of the JAX package's bench.py, same numpy calls.  return_families=True
-    also returns each row's family id."""
-    nfam = max(1, n // family_size)
-    query_n = min(query_n, nfam)
-    fam = rng.integers(0, 20, (nfam, l), dtype=np.int32)
-    which = rng.integers(0, nfam, n)
-    db = fam[which].copy()
-    flips = rng.poisson(2.0, n).clip(0, l)
-    ranks = np.argsort(rng.random((n, l)), axis=1)
-    mask = ranks < flips[:, None]
-    sub = rng.integers(0, 20, (n, l))
-    db = np.where(mask, sub, db).astype(np.int32)
-    q = fam[rng.choice(nfam, query_n, replace=False)]
-    if return_families:
-        return db, q, which
-    return db, q
+# phase 12: the bench at its default size, then each example once at the
+# smallest size that still reaches its path on the card, as (module,
+# arguments, environment; "{tmp}" is the phase's temporary directory),
+# EXAMPLE_WORKERS at a time, each failing the run past EXAMPLE_TIMEOUT_S
+BENCH_ARGS = ()
+EXAMPLE_RUNS = (
+    ("bench_engines", ("16",), {}),
+    ("bench_stream", ("16", "--c=1024"), {}),
+    ("quickstart", (), {}),
+    ("pipeline_e2e", ("200", "{tmp}/pipeline"), {}),
+    ("bench_align", ("512",), {}),
+    ("bench_pcluster_mp", ("2048", "--nproc=2", "--tables=2",
+                           "--timeout=240", "--logdir={tmp}/mp"), {}),
+    ("bench_gapped", ("256", "--indels"), {}),
+    ("sweep_klsh", ("1024", "--tables=1"), {}),
+    ("bench_merge_scale", ("16", "--kbs=64,128"), {}),
+    ("bench_stream27", ("--log2n=21", "--segment-log2=20",
+                        "--budgets=0,1"), {}),
+    ("bench_scale24", ("--mode=stream",),
+     {"HSEARCH_SCALE24_NPROT": "20000", "TMPDIR": "{tmp}/s24a"}),
+    ("bench_scale24", ("--mode=single",),
+     {"HSEARCH_SCALE24_NPROT": "20000", "TMPDIR": "{tmp}/s24b"}),
+)
+EXAMPLE_WORKERS, EXAMPLE_TIMEOUT_S = 4, 300
 
 
 def _sync(dev):
@@ -309,18 +319,22 @@ def lsh_configs():
 def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
         exact_n_log2=EXACT_N_LOG2, centroid_n_log2=CENTROID_N_LOG2,
         cli=True, stream_n_log2=STREAM_N_LOG2, stream_c=STREAM_C,
-        trace_out=None, pcluster_sizes=None, sharded_sizes=None):
+        trace_out=None, pcluster_sizes=None, sharded_sizes=None,
+        bench_args=BENCH_ARGS, example_runs=EXAMPLE_RUNS):
     """All phases on ``device``; returns the kernel records and the
     records of the IVF, LSH, clustering, segmented-engine, pcluster,
-    sharded and distributed phases.  ``pcluster_sizes`` and ``sharded_sizes`` override
-    run_pcluster's corpus sizes and run_sharded's ``fit`` / ``agree``
-    (rehearsals).  Raises on the first failed check."""
+    sharded, distributed and bench/examples phases.  ``pcluster_sizes``
+    and ``sharded_sizes`` override run_pcluster's corpus sizes and
+    run_sharded's ``fit`` / ``agree``, ``bench_args`` and
+    ``example_runs`` phase 12's runs (rehearsals).  Raises on the first
+    failed check."""
     import torch
-    from hsearch_tpu_torch import _device
+    from hsearch_tpu_torch import _device, bench
+    from hsearch_tpu_torch.bench import protein_like_db
     from hsearch_tpu_torch.core import embedding
     from hsearch_tpu_torch.ops import cuda_kernels as ck
     from hsearch_tpu_torch.ops import distance
-    from hsearch_tpu_torch.search import evaluate, exact, ivf, motif
+    from hsearch_tpu_torch.search import exact, ivf, motif
     from hsearch_tpu_torch.search.motif import _center_ptables
 
     dev = _device.resolve(device)
@@ -470,47 +484,27 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     del lreal, ldup
 
     # ---- phase 3: the IVF search ---------------------------------------
+    # the bench's own measurement (hsearch_tpu_torch.bench.run_ladder): the
+    # oracle, the kb ladder to recall >= 0.99 (retry off), 3 timed calls
     t0 = time.perf_counter()
     index = ivf.build_index(db, torch.Generator().manual_seed(0),
                             block_size=32, device=dev)
     _sync(dev)
     build_s = time.perf_counter() - t0
     print(f"phase3 build {build_s:.3f} s, B={index.num_blocks}", flush=True)
-    t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as wlog:
-        warnings.simplefilter("always")
-        gci, gki, gd = exact.search_radius(db, centers, RADIUS,
-                                           center_block=ORACLE_BLOCK,
-                                           max_hits=4 * MAX_HITS,
-                                           device=dev)
-    oracle_s = time.perf_counter() - t0
-    truncated = [str(w.message) for w in wlog if "max_hits" in
-                 str(w.message)]
-    print(f"phase3 oracle {oracle_s:.3f} s, {len(gci)} hits, truncated: "
-          f"{truncated or 'none'}", flush=True)
     ck.reset_launches()
-    rep, kb, stats = None, None, {}
-    for kb in KB_LADDER:
-        stats = {}
-        ci, ki, dd = ivf.search(index, centers, RADIUS, k_blocks=kb,
-                                max_hits=MAX_HITS, center_block=c_blk,
-                                retry_overflow=False, stats_out=stats,
-                                pack_cap_frac=4)
-        rep = evaluate.recall_from_indices(gci, gki, gd, ci, ki, RADIUS)
-        print(f"phase3 kb={kb} recall={rep.recall:.6f} stats={stats}",
-              flush=True)
-        if rep.recall >= 0.99:
-            break
-    iters = 3
-    _sync(dev)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        ci, ki, dd = ivf.search(index, centers, RADIUS, k_blocks=kb,
-                                max_hits=MAX_HITS, center_block=c_blk,
-                                retry_overflow=False, stats_out={},
-                                pack_cap_frac=4)
-    search_s = (time.perf_counter() - t0) / iters
-    qps = centers.shape[0] / search_s
+    lad = bench.run_ladder(index, db, centers, RADIUS, center_block=c_blk,
+                           ladder=KB_LADDER)
+    rec3 = lad.record
+    gci, gki, gd = lad.truth
+    oracle_s, kb, stats = rec3["oracle_s"], rec3["kb"], rec3["stats"]
+    print(f"phase3 oracle {oracle_s:.3f} s, {len(gci)} hits, truncated: "
+          f"{rec3['oracle_truncated'] or 'none'}", flush=True)
+    for row in rec3["ladder"]:
+        print(f"phase3 kb={row['kb']} recall={row['recall']:.6f} "
+              f"stats={row['stats']}", flush=True)
+    search_s = sum(rec3["call_s"]) / len(rec3["call_s"])
+    qps = rec3["qps"]
     # the same search shipping d2 from the device (2 words per hit)
     # instead of recomputing it on the host
     t0 = time.perf_counter()
@@ -522,9 +516,9 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     print(f"phase3 search {search_s * 1e3:.3f} ms/call, {qps:.1f} q/s, "
           f"launches {by_path['ivf_search']}; with transfer_d2=True "
           f"{search_d2_s * 1e3:.3f} ms", flush=True)
-    if rep.recall < 0.99:
-        raise AssertionError(f"weighted recall {rep.recall} < 0.99 at the "
-                             f"top of the kb ladder")
+    if rec3["recall"] < 0.99:
+        raise AssertionError(f"weighted recall {rec3['recall']} < 0.99 at "
+                             f"the top of the kb ladder")
     # the oracle itself against a numpy brute force over all N
     r2 = float(np.float32(RADIUS * RADIUS))
     for c in range(4):
@@ -539,10 +533,12 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     main_path = {"n": int(db.shape[0]), "c": int(centers.shape[0]),
                  "l": L, "radius": RADIUS, "center_block": c_blk,
                  "blocks": index.num_blocks, "build_s": build_s,
-                 "oracle_s": oracle_s, "kb": kb, "recall": rep.recall,
+                 "oracle_s": oracle_s, "kb": kb, "recall": rec3["recall"],
                  "search_ms": search_s * 1e3, "qps": qps,
+                 "call_ms": [1e3 * x for x in rec3["call_s"]],
+                 "launches_per_call": rec3["launches_per_call"],
                  "search_ms_transfer_d2": search_d2_s * 1e3,
-                 "hits": int(len(ci)), "truth_hits": int(len(gci)),
+                 "hits": rec3["hits"], "truth_hits": int(len(gci)),
                  "stats": stats}
     profile_call("ivf search", lambda: ivf.search(
         index, centers, RADIUS, k_blocks=kb, max_hits=MAX_HITS,
@@ -602,6 +598,9 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
         dev, db, greedy_res, pc_expect,
         (pcluster_sizes or {}).get("gapped_log2", PC_GAPPED_LOG2))
     del pc_expect
+
+    # ---- phase 12: the bench and the examples as subprocesses -----------
+    examples_rec = run_examples(dev, kb, bench_args, example_runs)
 
     if dev.type == "cuda":
         need = {"ivf_search": ("sq_distance_prune", "ptable_verify"),
@@ -664,7 +663,89 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
          "stream_segment": verify_seg},
     ]
     return (kernels, main_path, lsh, cluster, stream, pcluster, sharded_rec,
-            dist_rec)
+            dist_rec, examples_rec)
+
+
+def _run_module(module, args, env, dev, tmp, timeout=EXAMPLE_TIMEOUT_S):
+    """``python -m module args --device <dev>`` from the checkout, in its
+    own process group (killed whole at ``timeout``); returns (stdout,
+    stderr, wall seconds) and raises on a non-zero exit."""
+    import signal
+    cmd = [sys.executable, "-m", module,
+           *(a.format(tmp=tmp) for a in args), "--device", dev.type]
+    # an even share of the cores for each of the EXAMPLE_WORKERS at once
+    e = dict(os.environ, TMPDIR=tmp, PYTHONPATH=HERE + os.pathsep
+             + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS=str(
+                 max(1, (os.cpu_count() or 1) // EXAMPLE_WORKERS)))
+    e.update({k: v.format(tmp=tmp) for k, v in env.items()})
+    os.makedirs(e["TMPDIR"], exist_ok=True)
+    t0 = time.perf_counter()
+    pr = subprocess.Popen(cmd, cwd=HERE, env=e, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True,
+                          start_new_session=True)
+    try:
+        out, err = pr.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(pr.pid, signal.SIGKILL)
+        pr.communicate()
+        raise AssertionError(f"{' '.join(cmd)} ran past {timeout} s")
+    wall = time.perf_counter() - t0
+    if pr.returncode or not out.strip():
+        raise AssertionError(f"{' '.join(cmd)} exited {pr.returncode}:\n"
+                             f"{out[-3000:]}\n{err[-3000:]}")
+    return out, err, wall
+
+
+def run_examples(dev, kb, bench_args=BENCH_ARGS, runs=EXAMPLE_RUNS):
+    """Phase 12: ``python -m hsearch_tpu_torch.bench`` (its last stdout
+    line the four-key JSON, its kb phase 3's, recall >= 0.99, and on the
+    card both kernels launched in each timed call), then every example
+    once, EXAMPLE_WORKERS at a time; each must exit 0 with output.
+    Returns the bench's numbers, each example's wall seconds and the
+    phase's."""
+    import concurrent.futures
+    import re
+    rec: dict = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out, err, wall = _run_module("hsearch_tpu_torch.bench", bench_args,
+                                     {}, dev, tmp)
+        line = json.loads(out.strip().splitlines()[-1])
+        if set(line) != {"metric", "value", "unit", "vs_baseline"} or \
+                line["metric"] != "motif_search_throughput" or \
+                line["unit"] != "center queries/s/chip" or \
+                not line["value"] > 0:
+            raise AssertionError(f"bench printed {line}")
+        summary = [ln for ln in err.splitlines() if " kb=" in ln][-1]
+        b_kb = int(re.search(r" kb=(\d+) ", summary).group(1))
+        b_recall = float(re.search(r"weighted_recall=([\d.]+)",
+                                   summary).group(1))
+        launches = json.loads(re.search(r"launches_per_call=(\{.*?\})",
+                                        summary).group(1))
+        rec["bench"] = {**line, "kb": b_kb, "recall": b_recall,
+                        "launches_per_call": launches, "wall_s": wall,
+                        "summary": summary}
+        print(f"phase12 bench {wall:.1f} s: {json.dumps(line)}; {summary}",
+              flush=True)
+        if b_kb != kb or b_recall < 0.99:
+            raise AssertionError(f"bench kb {b_kb} recall {b_recall}; "
+                                 f"phase 3 chose kb {kb}")
+        if dev.type == "cuda" and min(launches.values()) <= 0:
+            raise AssertionError(f"the bench's timed calls launched "
+                                 f"{launches}")
+        rec["examples"] = {}
+        with concurrent.futures.ThreadPoolExecutor(EXAMPLE_WORKERS) as ex:
+            futs = {f"{name} {' '.join(args)}".strip(): ex.submit(
+                _run_module, f"hsearch_tpu_torch.examples.{name}", args,
+                env, dev, tmp) for name, args, env in runs}
+            for key, fut in futs.items():
+                out, _, wall = fut.result()
+                rec["examples"][key] = wall
+                print(f"phase12 {key}: {wall:.1f} s, "
+                      f"{out.strip().splitlines()[-1][:300]}", flush=True)
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"phase12 done in {rec['phase_s']:.1f} s", flush=True)
+    return rec
 
 
 def run_lsh(db, centers, truth, dev):
@@ -729,23 +810,6 @@ def run_lsh(db, centers, truth, dev):
     return out, launches
 
 
-def pair_recall(labels, fam, n_pairs=200_000):
-    """Fraction of sampled same-family row pairs sharing a label (the
-    JAX package's examples/bench_engines.py metric, same sampling)."""
-    prng = np.random.default_rng(1)
-    order = np.argsort(fam, kind="stable")
-    f = fam[order]
-    starts = np.searchsorted(f, np.arange(f.max() + 2))
-    sizes = np.diff(starts)
-    ok_fam = np.nonzero(sizes >= 2)[0]
-    fs = prng.choice(ok_fam, n_pairs)
-    a = starts[fs] + (prng.random(n_pairs) * sizes[fs]).astype(int)
-    b = starts[fs] + (prng.random(n_pairs) * sizes[fs]).astype(int)
-    m = a != b
-    ra, rb = order[a[m]], order[b[m]]
-    return float((labels[ra] == labels[rb]).mean())
-
-
 def run_cluster(db, fam, dev, centroid_n_log2):
     """Phase 7: greedy clustering + center-distance merge on the whole
     database, centroid clustering on a prefix.  Returns the record, the
@@ -753,6 +817,7 @@ def run_cluster(db, fam, dev, centroid_n_log2):
     import torch
     from hsearch_tpu_torch.cluster import centroid, greedy, postprocess
     from hsearch_tpu_torch.core import embedding
+    from hsearch_tpu_torch.examples.bench_engines import pair_recall
     from hsearch_tpu_torch.ops import cuda_kernels as ck
     from hsearch_tpu_torch.search import ivf
     n = db.shape[0]
@@ -1338,39 +1403,6 @@ def run_stream_sharded(dev, sidx, centers, truth, kb, b_max, ref, cb_for,
     return rec
 
 
-def protein_families(n, plen=120, seed=0):
-    """The JAX package's examples/bench_align.py corpus, same numpy calls:
-    n // 4 families of 4 copies of a plen-residue base (protein i belongs
-    to family i % (n // 4)), 4 substitutions each; proteins past the last
-    whole family random.  Returns (ProteinDB, number of families)."""
-    from hsearch_tpu_torch.core import io as hio
-    rng = np.random.default_rng(seed)
-    n_fam = max(1, n // 4)
-    seqs = []
-    for i in range(n):
-        if i < n_fam * 4:
-            s = np.random.default_rng(1000 + i % n_fam).integers(
-                0, 20, plen).astype(np.int32)
-            pos = rng.choice(plen, 4, replace=False)
-            s[pos] = rng.integers(0, 20, 4)
-        else:
-            s = rng.integers(0, 20, plen).astype(np.int32)
-        seqs.append(s)
-    starts = np.concatenate([[0], np.cumsum([len(s) for s in seqs])])
-    return hio.ProteinDB(names=[f"p{i}" for i in range(n)],
-                         seq=np.concatenate(seqs).astype(np.uint8),
-                         starts=starts), n_fam
-
-
-def family_pair_recall(labels, n_fam):
-    """Fraction of within-family protein pairs in one cluster (the JAX
-    package's examples/bench_align.py metric)."""
-    lab = labels[np.arange(n_fam * 4).reshape(4, n_fam).T]
-    pairs = [(a, b) for a in range(4) for b in range(a + 1, 4)]
-    return float(sum(int((lab[:, a] == lab[:, b]).sum()) for a, b in pairs)
-                 / max(n_fam * len(pairs), 1))
-
-
 def first_table_searcher(db, pre_groups, dev, max_proteins=None):
     """The group-partitioned ProteinSearcher that cluster_proteins builds
     for a table from its pre-groups; with ``max_proteins``, over only the
@@ -1456,6 +1488,8 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
     import torch
     from hsearch_tpu_torch.align import gapped_device, pipeline
     from hsearch_tpu_torch.cluster import _mp_pcluster_check, pcluster
+    from hsearch_tpu_torch.examples.bench_align import (family_pair_recall,
+                                                        protein_families)
     from hsearch_tpu_torch.ops import cuda_kernels as ck
     from hsearch_tpu_torch.utils import profiling
     rec: dict = {}
@@ -1884,6 +1918,7 @@ def run_distributed(dev, db, greedy_res, pc_expect, group_log2):
 
     import torch
     from hsearch_tpu_torch.cluster import pcluster
+    from hsearch_tpu_torch.examples.bench_align import protein_families
     rec: dict = {}
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
@@ -2197,8 +2232,8 @@ def main(argv=None) -> int:
           f" x{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
     (kernels, main_path, lsh, cluster, stream, pcluster, sharded,
-     distributed) = run("cuda", stream_n_log2=args.stream_n_log2,
-                        trace_out=args.trace_out)
+     distributed, examples) = run("cuda", stream_n_log2=args.stream_n_log2,
+                                  trace_out=args.trace_out)
     print("kernels " + json.dumps(kernels))
     print("main_path " + json.dumps(main_path))
     print("lsh " + json.dumps(lsh))
@@ -2207,6 +2242,7 @@ def main(argv=None) -> int:
     print("pcluster " + json.dumps(pcluster))
     print("sharded " + json.dumps(sharded))
     print("distributed " + json.dumps(distributed))
+    print("examples " + json.dumps(examples))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))

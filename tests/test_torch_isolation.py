@@ -5,16 +5,19 @@ raises when CUDA is absent instead of running on the CPU."""
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
 import torch
 
-from hsearch_tpu_torch import cli, metric
+from hsearch_tpu_torch import bench, cli, metric
 from hsearch_tpu_torch.align import pipeline
 from hsearch_tpu_torch.cluster import centroid, greedy, greedy_dist
 from hsearch_tpu_torch.cluster import pcluster, pcluster_dist, postprocess
 from hsearch_tpu_torch.core import io as tio
+from hsearch_tpu_torch.examples import (bench_engines, bench_pcluster_mp,
+                                        pipeline_e2e, quickstart)
 from hsearch_tpu_torch.lsh import tuning
 from hsearch_tpu_torch.parallel import mesh, multihost, stream_sharded, train
 from hsearch_tpu_torch.search import exact, ivf, motif, stream
@@ -50,10 +53,10 @@ def test_imports_without_jax_or_reference():
     # search/stream, utils/{stats,profiling}, core/{dataprep,orf,stockholm,
     # mds}, align/ (reduced, blast_stat, hostops, seed_index, extend,
     # gapped_device, pipeline), metric, parallel/ (mesh, sharded,
-    # multihost, _mp_check, train, stream_sharded) and the distributed
+    # multihost, _mp_check, train, stream_sharded), the distributed
     # clustering (cluster/{greedy_dist, pcluster_dist, _mp_greedy_check,
-    # _mp_pcluster_check})
-    assert int(res.stdout.split()[-1]) >= 57
+    # _mp_pcluster_check}), bench and examples/ with its 11 scripts
+    assert int(res.stdout.split()[-1]) >= 70
 
 
 def _proteins(db):
@@ -109,6 +112,15 @@ ENTRY_POINTS = {
         lambda db: stream_sharded.search_segmented_sharded(
             stream.build_segmented(db, torch.Generator(), segment_points=8,
                                    block_size=4, device="cpu"), db[:2], 5.0),
+    "bench.main": lambda db: bench.main(["--log2n", "10", "--centers", "8"]),
+    # one example of each kind: a single-process bench, a multi-process
+    # one, the CLI-driven pipeline and the worked example
+    "examples.bench_engines.main": lambda db: bench_engines.main(["10"]),
+    "examples.bench_pcluster_mp.main":
+        lambda db: bench_pcluster_mp.main(["16"]),
+    "examples.pipeline_e2e.main": lambda db: pipeline_e2e.main(
+        ["4", os.path.join(tempfile.gettempdir(), "never_made")]),
+    "examples.quickstart.run": lambda db: quickstart.run(),
     "stream.upload_segment": lambda db: stream.upload_segment(
         stream.host_segment_from_arrays(
             db.reshape(4, -1).astype(np.int8),
