@@ -5,13 +5,16 @@ training paths, distributed k-mer and protein clustering, CLI.
 
     python3 chip_smoke.py [--stream-n-log2 N] [--trace-out PATH]
 
-Needs one CUDA device (exits non-zero without one) and ``nvcc`` for the
-kernels, which it builds from ``hsearch_tpu_torch/csrc`` into
-``hsearch_tpu_torch/_build``.  Imports neither jax nor hsearch_tpu.
+Needs one CUDA device (exits non-zero without one), ``nvcc`` for the
+kernels and ``g++`` (or ``$CXX``) with OpenMP for the host library, which
+it builds from ``hsearch_tpu_torch/csrc`` into ``hsearch_tpu_torch/_build``.
+Imports neither jax nor hsearch_tpu.
 
 Phases, each of which fails the run on error:
   1. environment: torch/CUDA versions, the card's name and power limit,
-     the kernel build;
+     the kernel build and, beside it, the host library's (g++ -fopenmp:
+     build seconds, compiler, the OpenMP runtime loaded, the host's cores
+     and the library's effective thread count);
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes (real index data), at ragged small shapes and,
      for prune, past one grid's 65,535 block tiles (C=64, D=8,
@@ -86,13 +89,27 @@ Phases, each of which fails the run on error:
      idle share); the first four 8,192-lane batches of that slice through
      the windowed extension on the card and on the CPU, bitwise, and the
      same for the chunked extension on 512 proteins of 600 residues, with
-     ms per call; cluster_proteins gapped=True on a 2^14-protein corpus,
-     banded_scores on every gap-triggered window card against CPU
-     (bitwise), ms per call and the host tracebacks; cluster_proteins on
+     ms per call; cluster_proteins gapped=True on a 2^14-protein corpus
+     with examples/bench_gapped.py's indels, banded_scores on every
+     gap-triggered window card against CPU (bitwise), ms per call and the
+     host tracebacks; cluster_proteins on
      2^12 proteins on the card and on the CPU with the same KLSH
      parameters (labels and every Hit field identical); the pcluster CLI;
      the corpus's group-partitioned seed index through a ``seed``
-     checkpoint (save and load seconds, arrays and probes unchanged).
+     checkpoint (save and load seconds, arrays and probes unchanged); the
+     host library's call counts over the phase (seed_codes, argsort_u64
+     and align_gapped must be non-zero);
+ 9h. the host library (native_ext, csrc/hostops.cpp) on phase 9's
+     100,000-protein corpus, each binding against its numpy twin bitwise
+     with both times: seed codes, the stable argsort of the valid codes,
+     the grouped index's argsort_u32 of its largest group, searchsorted of
+     the protein starts, the probe and the pair preparation of the
+     table's first search_all slice, the diag-run collapse, the traceback
+     of the first 256 gap-triggered windows of the 2^14 gapped run,
+     union-find over the 100,000-protein run's hit edges, the FASTA parse
+     of the corpus written as the CLI reads it, the suffix array of a
+     2^18-residue prefix and the brute force of 2 centers over its
+     25-mers;
  10. sharded, multi-process and training (parallel/): the sharded IVF
      search over 4 db shards on the one card on phase 3's database and
      centers (per-shard kb ladder from 128 to weighted recall >= 0.99, ms
@@ -122,7 +139,8 @@ Phases, each of which fails the run on error:
      hsearch_tpu_torch/examples once at a small size (EXAMPLE_RUNS, 4 at
      a time), each of which must exit 0; their wall seconds.
 
-Output: free-form progress lines; ``kernels``, ``main_path``, ``lsh``,
+Output: free-form progress lines; ``kernels``, ``host_kernels``,
+``main_path``, ``lsh``,
 ``cluster``, ``stream``, ``pcluster``, ``sharded``, ``distributed`` and
 ``examples`` lines; the nvidia-smi name/power line; one JSON object ``{"kernels":
 [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -131,6 +149,7 @@ Output: free-form progress lines; ``kernels``, ``main_path``, ``lsh``,
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import subprocess
@@ -175,6 +194,9 @@ STREAM_CLI_N_LOG2, STREAM_CLI_Q = 16, 8
 PC_N, PC_BITS, PC_SIGMA, PC_RECALL_GATE = 100_000, 12, 0.1, 0.98
 PC_GAPPED_LOG2, PC_CROSS_LOG2, PC_CLI_LOG2 = 14, 12, 10
 PC_LONG_N, PC_LONG_LEN, PC_PROFILE_N, PC_CMP_BATCHES = 512, 600, 1 << 14, 4
+# phase 9h: gap-triggered windows traced by both tracebacks, and the
+# residue prefix of the suffix array and the brute force
+HOST_GAPPED_WINDOWS, SA_PREFIX = 256, 1 << 18
 # phase 2: the prune case past one grid's 65,535 block tiles (C, D, B)
 PRUNE_PAST_GRID = (64, 8, 8_388_608)
 # phase 10: db shards on the one card, the per-shard kb ladder, the
@@ -199,7 +221,7 @@ EXAMPLE_RUNS = (
     ("bench_align", ("512",), {}),
     ("bench_pcluster_mp", ("2048", "--nproc=2", "--tables=2",
                            "--timeout=240", "--logdir={tmp}/mp"), {}),
-    ("bench_gapped", ("256", "--indels"), {}),
+    ("bench_gapped", ("16384", "--indels"), {}),
     ("sweep_klsh", ("1024", "--tables=1"), {}),
     ("bench_merge_scale", ("16", "--kbs=64,128"), {}),
     ("bench_stream27", ("--log2n=21", "--segment-log2=20",
@@ -288,6 +310,43 @@ def check_prune_past_grid(ck, dev, gen):
     return res
 
 
+def build_all(dev):
+    """Phase 1: the CUDA kernels (on the card) and the host library, every
+    compiler started at once; returns the host library's record."""
+    import concurrent.futures
+    from hsearch_tpu_torch import native_ext
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        host = ex.submit(timed, native_ext.build)
+        if dev.type == "cuda":
+            cuda_s = timed(ck.build)
+            print(f"phase1 kernels built in {cuda_s:.2f} s into "
+                  f"{ck._BUILD}", flush=True)
+        host_s = host.result()
+    threads = native_ext.set_threads(0)       # loads it: the count as is
+    cxx = native_ext.compiler()
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[:1]
+    ldd = subprocess.run(["ldd", str(native_ext.lib_path())],
+                         capture_output=True, text=True).stdout
+    rec = {"build_s": host_s, "compiler": cxx,
+           "compiler_version": version[0] if version else None,
+           "flags": list(native_ext.CXX_FLAGS),
+           "library": str(native_ext.lib_path()),
+           "ldd_openmp": [ln.strip() for ln in ldd.splitlines()
+                          if "gomp" in ln or "omp.so" in ln],
+           "openmp_runtime_loaded": native_ext.openmp_runtime(),
+           "cpu_count": os.cpu_count(), "threads": threads}
+    print(f"phase1 host library: {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def verify_small_inputs(rng, dev, c, kb, bs, l):
     """ops/kernel_checks.verify_inputs at a ragged shape, on ``dev``."""
     import torch
@@ -341,11 +400,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     gen = torch.Generator().manual_seed(1)
 
     # ---- phase 1: build ------------------------------------------------
-    if dev.type == "cuda":
-        t0 = time.perf_counter()
-        ck.build()
-        print(f"phase1 kernels built in {time.perf_counter() - t0:.2f} s "
-              f"into {ck._BUILD}", flush=True)
+    host_build = build_all(dev)
 
     # ---- phase 2: kernels vs plain versions ----------------------------
     rng = np.random.default_rng(0)
@@ -585,6 +640,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     # ---- phase 9: the aligner and pcluster ---------------------------------
     pcluster, pc_expect = run_pcluster(dev, cli=cli,
                                        **(pcluster_sizes or {}))
+    pcluster["host_library"]["build"] = host_build
     # neither TPU kernel lies on this path: its launches are read to show it
     by_path["pcluster"] = pcluster["cluster"]["tpu_kernel_launches"]
 
@@ -674,9 +730,11 @@ def _run_module(module, args, env, dev, tmp, timeout=EXAMPLE_TIMEOUT_S):
     cmd = [sys.executable, "-m", module,
            *(a.format(tmp=tmp) for a in args), "--device", dev.type]
     # an even share of the cores for each of the EXAMPLE_WORKERS at once
+    # (torch's threads and the host library's pool)
+    share = str(max(1, (os.cpu_count() or 1) // EXAMPLE_WORKERS))
     e = dict(os.environ, TMPDIR=tmp, PYTHONPATH=HERE + os.pathsep
-             + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS=str(
-                 max(1, (os.cpu_count() or 1) // EXAMPLE_WORKERS)))
+             + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS=share,
+             HSEARCH_THREADS=share)
     e.update({k: v.format(tmp=tmp) for k, v in env.items()})
     os.makedirs(e["TMPDIR"], exist_ok=True)
     t0 = time.perf_counter()
@@ -1486,10 +1544,12 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
     import dataclasses
 
     import torch
+    from hsearch_tpu_torch import native_ext
     from hsearch_tpu_torch.align import gapped_device, pipeline
     from hsearch_tpu_torch.cluster import _mp_pcluster_check, pcluster
     from hsearch_tpu_torch.examples.bench_align import (family_pair_recall,
                                                         protein_families)
+    from hsearch_tpu_torch.examples.bench_gapped import add_indels
     from hsearch_tpu_torch.ops import cuda_kernels as ck
     from hsearch_tpu_torch.utils import profiling
     rec: dict = {}
@@ -1501,6 +1561,7 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
     rec["corpus_s"] = time.perf_counter() - t0
     profiling.reset()
     ck.reset_launches()
+    native_ext.reset_calls()
     t0 = time.perf_counter()
     res = pcluster.cluster_proteins(db, torch.Generator().manual_seed(0),
                                     device=dev, **kw)
@@ -1514,7 +1575,8 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
         "clusters": int(len(np.unique(res.labels))),
         "family_pair_recall": recall,
         "stages_s": {k: v["total_s"] for k, v in profiling.report().items()},
-        "tpu_kernel_launches": ck.launch_counts()}
+        "tpu_kernel_launches": ck.launch_counts(),
+        "host_library_calls": native_ext.call_counts()}
     print(f"phase9 cluster_proteins: {json.dumps(rec['cluster'])}",
           flush=True)
     if recall < PC_RECALL_GATE:
@@ -1537,6 +1599,7 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
     # traced; and the extension of its first batches on the card against
     # the CPU
     ps = first_table_searcher(db, res.pre_groups, dev, profile_n)
+    pre_groups, edges = res.pre_groups, expect["hit_rows"][:, :2]
     del res
     rec["profile"] = {"proteins": len(ps.ids)}
     if dev.type == "cuda":
@@ -1549,7 +1612,7 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
     print(f"phase9 one search_all slice traced: "
           f"{json.dumps(rec['profile'])}", flush=True)
     rec["extend_windowed"] = compare_extension(ps, dev)
-    del ps, db
+    del ps
     long_db, _ = protein_families(long_n, plen=PC_LONG_LEN, seed=1)
     rec["extend_chunked"] = compare_extension(
         pipeline.ProteinSearcher(long_db, device=dev), dev)
@@ -1557,8 +1620,11 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
           f"{json.dumps(rec['extend_windowed'])}; chunked "
           f"{json.dumps(rec['extend_chunked'])}", flush=True)
 
-    # the gapped path
-    gdb, _ = protein_families(1 << gapped_log2)
+    # the gapped path, on the corpus with bench_gapped's indels: on the
+    # substitution-only corpus no gap pays, so no traceback would run
+    gdb, g_fam = protein_families(1 << gapped_log2)
+    gdb = dataclasses.replace(gdb, seq=add_indels(
+        gdb.seq.reshape(-1, gdb.lengths[0]), g_fam).reshape(-1))
     t0 = time.perf_counter()
     plain = pcluster.cluster_proteins(gdb, torch.Generator().manual_seed(0),
                                       device=dev, **kw)
@@ -1604,6 +1670,8 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
         "labels_equal_ungapped": bool(np.array_equal(gapped.labels,
                                                      plain.labels))}
     print(f"phase9 gapped: {json.dumps(rec['gapped'])}", flush=True)
+    windows = [(q[r, :ql[r]], d[r, :dl[r]])
+               for r in range(min(HOST_GAPPED_WINDOWS, len(where)))]
     del gs, queries, q, d, on_dev, got, want
 
     # the same clustering on the card and on the CPU
@@ -1622,10 +1690,237 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
     print(f"phase9 cluster_proteins on {dev} == CPU at "
           f"{1 << cross_log2} proteins ({len(outs[0].hits)} hits, every "
           "field)", flush=True)
+    del outs, cdb
+    # the host library on this phase's path: its calls over the phase
+    rec["host_library_calls"] = calls = native_ext.call_counts()
+    print(f"phase9 host library calls: {json.dumps(calls)}", flush=True)
+    missing = [k for k in ("seed_codes", "argsort_u64", "align_gapped")
+               if calls[k] <= 0]
+    if missing:
+        raise AssertionError(f"phase 9 never called the host library's "
+                             f"{missing}: {calls}")
+    rec["host_library"] = run_host_library(db, pre_groups, edges, windows,
+                                           bargs)
+    del db, pre_groups, edges, windows
     if cli:
         rec["cli"] = run_pcluster_cli(protein_families(1 << PC_CLI_LOG2)[0],
                                       dev)
     return rec, expect
+
+
+# each host-library binding: the JAX package's C function it replaces
+# (native/hsearch_native.cpp) and its binding (hsearch_tpu/native_ext.py)
+HOST_REPLACES = {
+    "parse_fasta_bytes": ("native/hsearch_native.cpp:65", 156),
+    "suffix_array": ("native/hsearch_native.cpp:120", 181),
+    "union_find_labels": ("native/hsearch_native.cpp:149", 193),
+    "brute_search_cpp": ("native/hsearch_native.cpp:275", 206),
+    "align_gapped": ("native/hsearch_native.cpp:177", 232),
+    "seed_codes": ("native/hsearch_native.cpp:317", 330),
+    "searchsorted_right": ("native/hsearch_native.cpp:542", 356),
+    "argsort_u64": ("native/hsearch_native.cpp:452 (radix :378)", 369),
+    "argsort_u32": ("native/hsearch_native.cpp:532 (radix :461)", 381),
+    "pair_prep": ("native/hsearch_native.cpp:608", 399),
+    "probe_sorted": ("native/hsearch_native.cpp:560 and :709", 430),
+}
+
+
+def host_kernels(pc_rec) -> list[dict]:
+    """The host_kernels line: per binding, what it replaces, its calls
+    over phase 9 and phase 9h's native and numpy seconds."""
+    host = pc_rec["host_library"]
+    out = []
+    for name, (c_line, py_line) in HOST_REPLACES.items():
+        out.append({"name": name, "route": "cpp-openmp",
+                    "source": "hsearch_tpu_torch/csrc/hostops.cpp",
+                    "binding": "hsearch_tpu_torch/native_ext.py",
+                    "replaces": c_line,
+                    "binding_replaces":
+                        f"hsearch_tpu/native_ext.py:{py_line}",
+                    "calls": pc_rec["host_library_calls"][name],
+                    **host[name]})
+    out.append({"name": "collapse_diag_runs", "route": "cpp-openmp "
+                "(argsort_u64 twice)",
+                "replaces": "hsearch_tpu/align/pipeline.py:93",
+                **host["collapse_diag_runs"]})
+    return out
+
+
+def _same(a, b) -> bool:
+    """Equal values and dtypes, through tuples and lists."""
+    if isinstance(a, (tuple, list)):
+        return isinstance(b, (tuple, list)) and len(a) == len(b) \
+            and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype \
+            and np.array_equal(a, b)
+    return a == b
+
+
+def run_host_library(db, pre_groups, edges, windows, gap_args):
+    """Phase 9h: each host-library binding on phase 9's corpus against its
+    numpy twin, bitwise, with both times (one call each, host clock).
+    Returns {binding: {native_s, numpy_s, shape ...}}."""
+    from hsearch_tpu_torch import native_ext as nat
+    from hsearch_tpu_torch.align import hostops, pipeline, seed_index
+    from hsearch_tpu_torch.cluster import union_find
+    from hsearch_tpu_torch.core import dataprep, embedding
+    from hsearch_tpu_torch.core import io as hio
+    rows: dict = {}
+    t_phase = time.perf_counter()
+
+    def both(name, native, plain, same=_same, **shape):
+        t0 = time.perf_counter()
+        got = native()
+        t1 = time.perf_counter()
+        want = plain()
+        t2 = time.perf_counter()
+        if not same(got, want):
+            raise AssertionError(f"host library {name} differs from its "
+                                 "numpy twin")
+        rows[name] = {"native_s": t1 - t0, "numpy_s": t2 - t1, **shape}
+        print(f"phase9h {name}: native {t1 - t0:.4f} s, numpy "
+              f"{t2 - t1:.4f} s, bitwise {json.dumps(shape)}", flush=True)
+        return got
+
+    g21 = seed_index._GROUP21
+    seq = np.asarray(db.seq, np.int32)
+    starts = np.asarray(db.starts, np.int64)
+    code, valid6, _, _, _ = both(
+        "seed_codes", lambda: nat.seed_codes(seq, starts, g21),
+        lambda: hostops.seed_codes(seq, starts, g21), positions=len(seq))
+    pos = np.nonzero(valid6)[0]
+    c = code[pos].astype(np.uint64)
+    both("argsort_u64", lambda: nat.argsort_u64(c),
+         lambda: hostops.argsort_u64(c), keys=len(c))
+    both("searchsorted_right", lambda: nat.searchsorted_right(starts, pos),
+         lambda: hostops.searchsorted_right(starts, pos),
+         sorted=len(starts), queries=len(pos))
+    del code, valid6, pos, c
+
+    # the table's group-partitioned searcher (host side only): its largest
+    # group's codes, and the probe and pair preparation of its first
+    # search_all slice (the queries of the first pair_budget candidates)
+    t0 = time.perf_counter()
+    s = first_table_searcher(db, pre_groups, "cpu")
+    rows["index_build_s"] = time.perf_counter() - t0
+    code, valid6, _, _, _ = nat.seed_codes(s.seq, s.starts, g21)
+    cs = code[np.nonzero(valid6)[0]]
+    gs = np.asarray(s.index.group_starts, np.int64)
+    big = int(np.argmax(np.diff(gs)))
+    cg = cs[gs[big]:gs[big + 1]]
+    both("argsort_u32", lambda: nat.argsort_u32(cg),
+         lambda: hostops.argsort_u32(cg), keys=len(cg), groups=len(gs) - 1)
+    del code, valid6, cs, cg
+    p = s.params
+    code_c, _, valid10, qgrp10 = seed_index.host_codes(s.seq, s.starts)
+    qidx = np.nonzero(valid10)[0]
+    qgroups = np.repeat(s.groups.astype(np.int64), np.diff(s.starts))[qidx]
+    counts = seed_index.bucket_counts(s._hview, code_c[qidx], p.cand_max,
+                                      qgroups=qgroups)
+    b = min(len(qidx), int(np.searchsorted(np.cumsum(counts),
+                                           p.pair_budget)) + 1)
+    qidx, qgroups = qidx[:b], qgroups[:b]
+    qk = seed_index.query_keys(s._hview, code_c[qidx], qgroups)
+    qg = qgrp10[qidx].astype(np.int32)
+    v = s._hview
+    del code_c, valid10, qgrp10, counts
+    rows_, dpos, _ = both(
+        "probe_sorted",
+        lambda: nat.probe_sorted(v.keys64, v.positions,
+                                 qk.astype(np.uint64), v.g10_at, qg,
+                                 p.cand_max),
+        lambda: hostops.probe_sorted(v.keys, v.positions, qk, v.g10_at, qg,
+                                     p.cand_max), queries=len(qk))
+    q64 = qidx.astype(np.int64)
+    tol = int(p.collapse_runs)
+
+    def prep_same(got, want):
+        return _same(got[0], want[0]) and _same(
+            got[1], np.stack([want[1], want[2]]).astype(np.int32))
+
+    six, _ = both("pair_prep",
+                  lambda: nat.pair_prep(rows_, dpos, q64, s.starts, s.ids,
+                                        None, tol),
+                  lambda: hostops.pair_prep(rows_, dpos, q64, s.starts,
+                                            s.ids, None, tol),
+                  same=prep_same, pairs=len(rows_), collapse_tol=tol)
+    rows["pair_prep"]["survivors"] = int(six.shape[1])
+    six0, pids0 = nat.pair_prep(rows_, dpos, q64, s.starts, s.ids, None, 0)
+    del rows_, dpos, six, s, v, qk
+    both("collapse_diag_runs",
+         lambda: hostops.collapse_diag_runs(six0[0], six0[1], pids0[0],
+                                            pids0[1], tol,
+                                            argsort=nat.argsort_u64),
+         lambda: hostops.collapse_diag_runs(six0[0], six0[1], pids0[0],
+                                            pids0[1], tol),
+         pairs=int(six0.shape[1]))
+    del six0, pids0
+
+    sub21 = pipeline._sub21()
+    both("align_gapped",
+         lambda: [nat.align_gapped(q, d, sub21, *gap_args)
+                  for q, d in windows],
+         lambda: [hostops.align_gapped(q, d, sub21, *gap_args)
+                  for q, d in windows], windows=len(windows))
+    n = db.num_proteins
+
+    def uf_plain():
+        uf = union_find.UnionFind(n)
+        uf.union_edges(edges[:, 0], edges[:, 1])
+        return uf.components()
+
+    both("union_find_labels",
+         lambda: nat.union_find_labels(n, edges[:, 0], edges[:, 1]),
+         uf_plain, nodes=n, edges=len(edges))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "corpus.fasta")
+        hio.write_fasta(path, db.names, [db.protein(i) for i in range(n)])
+        with open(path, "rb") as f:
+            data = f.read()
+
+        def parse_plain():
+            py = hio.read_fasta(io.StringIO(data.decode()), seed=None)
+            return py.names, py.seq, py.starts
+
+        def parse_same(got, want):
+            names, pseq, pstarts = got
+            folded = np.where(pseq == 20, np.uint8(255), pseq)
+            return names == want[0] and _same(folded, want[1]) \
+                and _same(pstarts, want[2])
+
+        both("parse_fasta_bytes", lambda: nat.parse_fasta_bytes(data),
+             parse_plain, same=parse_same, bytes=len(data), records=n)
+        with open(path) as f:
+            via_file = hio.read_fasta(f, seed=0)
+        via_path = hio.read_fasta(path, seed=0)
+        if not (via_path.names == via_file.names
+                and _same(via_path.seq, via_file.seq)
+                and _same(via_path.starts, via_file.starts)):
+            raise AssertionError("read_fasta through the host library "
+                                 "differs from the Python parser")
+    pre = seq[:SA_PREFIX]
+    both("suffix_array", lambda: nat.suffix_array(pre),
+         lambda: dataprep.suffix_array(pre), residues=len(pre))
+    kmers = np.lib.stride_tricks.sliding_window_view(pre, L)
+    centers = np.ascontiguousarray(kmers[:2])
+
+    def brute_plain():
+        dsq = np.asarray(embedding.DISTANCE_SQUARE, np.float64)
+        d2 = np.zeros((len(centers), len(kmers)))
+        for i in range(L):
+            d2 += dsq[centers[:, i][:, None], kmers[:, i][None, :]]
+        ci, ki = np.nonzero(d2 <= RADIUS ** 2)
+        return ci.astype(np.int64), ki.astype(np.int64), \
+            np.sqrt(d2[ci, ki])
+
+    both("brute_search_cpp",
+         lambda: nat.brute_search_cpp(centers, kmers, RADIUS), brute_plain,
+         centers=len(centers), kmers=len(kmers))
+    rows["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase9h host library == numpy twins in {rows['phase_s']:.1f} s",
+          flush=True)
+    return rows
 
 
 def seed_checkpoint(db, pre_groups, n_probe=2000):
@@ -2235,6 +2530,7 @@ def main(argv=None) -> int:
      distributed, examples) = run("cuda", stream_n_log2=args.stream_n_log2,
                                   trace_out=args.trace_out)
     print("kernels " + json.dumps(kernels))
+    print("host_kernels " + json.dumps(host_kernels(pcluster)))
     print("main_path " + json.dumps(main_path))
     print("lsh " + json.dumps(lsh))
     print("cluster " + json.dumps(cluster))

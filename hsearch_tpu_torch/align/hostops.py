@@ -1,11 +1,12 @@
-"""Host passes of the aligner, in numpy, and the probe passes as torch ops.
+"""Host passes of the aligner: the numpy twins of the port's C++ host
+library, and the probe passes as torch ops.
 
-The JAX package runs these through its optional C++ library
-(hsearch_tpu/native_ext.py: ``searchsorted_right``, ``argsort_u64``,
+The main path runs these passes through ``hsearch_tpu_torch.native_ext``
+(csrc/hostops.cpp, OpenMP): ``searchsorted_right``, ``argsort_u64``,
 ``argsort_u32``, ``seed_codes``, ``probe_sorted``, ``pair_prep``,
-``align_gapped``) and keeps a numpy twin of each as the fallback that its
-tests hold bitwise equal to the library.  The port keeps those numpy
-twins: the same results, single-threaded.
+``align_gapped``.  The numpy versions here are their plain versions: the
+same results, single-threaded, which the tests hold the library bitwise
+equal to.
 
 On a CUDA device the seed probe and the pair preparation dominated a
 pcluster run on the host (118 of 142 s at 100,000 proteins on an H100
@@ -141,14 +142,17 @@ def probe_sorted(keys: np.ndarray, positions: np.ndarray,
     return rows[ok], ids[ok], n_over
 
 
-def collapse_diag_runs(qpos, dpos, qpid, dpid, tol: int):
+def collapse_diag_runs(qpos, dpos, qpid, dpid, tol: int,
+                       argsort=argsort_u64):
     """Keep one seed per same-diagonal run.
 
     Seeds of one (query, subject) pair on the same diagonal whose query
     positions step by <= tol sit inside one exact-match region: the
     extension from any of them reaches the same HSP, and assembly dedups
     identical extents.  Returns a keep-index into the inputs (sorted by
-    (qpid, dpid, diag, qpos), one stable argsort per composite key)."""
+    (qpid, dpid, diag, qpos), one stable ``argsort`` of uint64 keys per
+    composite key: numpy's here, the library's radix on the main
+    path)."""
     qpos = qpos.astype(np.int64)
     dpos = dpos.astype(np.int64)
     s = int(max(qpos.max(), dpos.max())) + 1 if len(qpos) else 1
@@ -157,8 +161,8 @@ def collapse_diag_runs(qpos, dpos, qpid, dpid, tol: int):
         + dpid
     k2 = (diag + s) * s + qpos
     # both keys are nonnegative, so int64 bit patterns order as uint64
-    o1 = argsort_u64(k2.view(np.uint64))
-    order = o1[argsort_u64(np.ascontiguousarray(k1[o1]).view(np.uint64))]
+    o1 = argsort(k2.view(np.uint64))
+    order = o1[argsort(np.ascontiguousarray(k1[o1]).view(np.uint64))]
     q = qpos[order]
     k1s, dgs = k1[order], diag[order]
     new_run = np.ones(len(q), bool)

@@ -4,7 +4,7 @@ hsearch_tpu/align/pipeline.py).
 
 CHashSearch::ProteinSearching / Searching / ExtendSeq2Set / CalRes /
 SumEvalue / PrintRes (hash_search.cpp:263-1308): seed probing is a ragged
-pass (numpy on the host, or torch ops on a CUDA device), the extension
+pass (the C++ host library, or torch ops on a CUDA device), the extension
 runs batched on the device, and hit bookkeeping, Karlin-Altschul
 statistics and output stay on the host (they run once per query over a
 few dozen survivors).  Every ``Hit`` field equals the JAX
@@ -26,7 +26,7 @@ import warnings
 import numpy as np
 import torch
 
-from .. import _device
+from .. import _device, native_ext
 from ..core import alphabet, blosum
 from ..utils import profiling
 from . import blast_stat, extend, gapped_device, hostops, seed_index
@@ -130,9 +130,10 @@ class ProteinSearcher:
     (pcluster.cpp:157-167).
 
     device: where the extension runs (default ``"cuda"``; ``"cpu"`` must
-    be asked for).  The index build and assembly are host numpy; the seed
-    probe and pair preparation run as numpy on the CPU and as their torch
-    twins on a CUDA device.
+    be asked for).  The index build runs in the C++ host library
+    (``native_ext``) and assembly in numpy; the seed probe and pair
+    preparation run in the library on the CPU and as their torch twins on
+    a CUDA device.
     """
 
     def __init__(self, db, params: SearchParams = SearchParams(),
@@ -180,7 +181,7 @@ class ProteinSearcher:
         self.seq = np.asarray(seq, np.int32)
         self.starts = np.asarray(starts, np.int64)
         self.groups = None if groups is None else np.asarray(groups)
-        # host probe view: the seed probe runs as a ragged numpy pass,
+        # host probe view: the seed probe runs as a ragged host pass,
         # O(candidates) instead of a mostly empty (Q, cand_max) slab
         self.index, self._hview = seed_index.build_index_and_view(
             self.seq, self.starts, protein_groups=self.groups)
@@ -188,7 +189,7 @@ class ProteinSearcher:
         # of the batched extension both index into it
         self._seq_dev = torch.as_tensor(self.seq, device=self.device)
         # on a CUDA device search_all's probe and pair preparation run
-        # there too (hostops' torch twins of the numpy passes, which
+        # there too (hostops' torch twins of the host passes, which
         # dominated a run on the host)
         self._probe_dev = None
         if self.device.type == "cuda":
@@ -280,14 +281,14 @@ class ProteinSearcher:
         # drop subjects without the full 10-residue local seed
         # (hash_search.cpp:538-540); pairs arrive (qpos, dpos)-sorted and
         # duplicate-free from the single-probe ragged pass
-        pid = hostops.searchsorted_right(self.starts, dpos) - 1
+        pid = native_ext.searchsorted_right(self.starts, dpos) - 1
         ok = self.starts[pid + 1] - dpos >= seed_index.SEED_LEN
         qpos, dpos = qpos[ok], dpos[ok]
         if self.params.collapse_runs and len(qpos):
-            dpid2 = hostops.searchsorted_right(self.starts, dpos) - 1
+            dpid2 = native_ext.searchsorted_right(self.starts, dpos) - 1
             keep = hostops.collapse_diag_runs(
                 qpos, dpos, np.zeros(len(qpos), np.int64), dpid2,
-                self.params.collapse_runs)
+                self.params.collapse_runs, argsort=native_ext.argsort_u64)
             qpos, dpos = qpos[keep], dpos[keep]
         return qpos, dpos
 
@@ -298,7 +299,7 @@ class ProteinSearcher:
         # floor + strict compare reproduces the reference's float test:
         # continue while deficit <= 8.938 <=> integer deficit <= 8
         drop = int(self.cutoffs.ungap_ext_drop)
-        pid = hostops.searchsorted_right(self.starts, dpos) - 1
+        pid = native_ext.searchsorted_right(self.starts, dpos) - 1
         dev = self.device
         bounds = np.stack([qpos, dpos, np.zeros_like(qpos),
                            np.full_like(qpos, len(qseq)), self.starts[pid],
@@ -658,8 +659,8 @@ class ProteinSearcher:
                                         ("ids", self.ids.astype(np.int64)))}
 
     def _probe_prep_device(self, dq, exclude, tol: int):
-        """The device twin of ``probe_host`` + ``hostops.pair_prep`` for one
-        slice of device query arrays (probe keys as int64, 4th-suffix
+        """The device twin of ``probe_host`` + ``native_ext.pair_prep`` for
+        one slice of device query arrays (probe keys as int64, 4th-suffix
         groups, global query offsets): (six on the device, query_local,
         dpid, n_over)."""
         d = self._probe_dev
@@ -866,7 +867,7 @@ class ProteinSearcher:
                         qgrp10_c[qidx_c[sl]], p.cand_max,
                         qgroups=None if qgroups_c is None
                         else qgroups_c[sl])
-                    six_c, ql_c, dpid_c = hostops.pair_prep(
+                    six_c, (ql_c, dpid_c) = native_ext.pair_prep(
                         rows, dpos, qidx_c[sl].astype(np.int64) + s0,
                         self.starts, self.ids, exclude_pairs, tol)
                     del rows, dpos  # 16 B/pair raw — dead once packed
@@ -970,11 +971,11 @@ def refine_gapped_all(searcher: ProteinSearcher, queries,
     the device in batches of ``_GAPPED_BATCH`` (``banded_scores``, one
     row loop per batch, where the JAX package runs one compiled program
     per query), and only hits whose gapped score improves get the host
-    traceback.  Scores, identity and extents update when the gapped
-    alignment wins; e-values use the query's own statistics context (its
-    group's when group-partitioned), so refined and unrefined hits share
-    one e-value scale.  Equal, hit for hit, to the JAX package's
-    per-query ``refine_gapped``.
+    traceback (``native_ext.align_gapped``).  Scores, identity and
+    extents update when the gapped alignment wins; e-values use the
+    query's own statistics context (its group's when group-partitioned),
+    so refined and unrefined hits share one e-value scale.  Equal, hit
+    for hit, to the JAX package's per-query ``refine_gapped``.
     """
     _t0 = time.perf_counter()
     cut = searcher.cutoffs
@@ -1011,13 +1012,14 @@ def refine_gapped_all(searcher: ProteinSearcher, queries,
                 out.append(h)
                 continue
             qa, qb, da, db_, dlo = win
-            score, ops, e1, e2 = hostops.align_gapped(
+            res = native_ext.align_gapped(
                 np.minimum(qseq[qa:qb], 20).astype(np.int32),
                 np.minimum(searcher.seq[da:db_], 20).astype(np.int32),
                 sub21, cut.gap_open, cut.gap_extend, drop, band)
-            if score <= h.score:
+            if res is None or res[0] <= h.score:
                 out.append(h)
                 continue
+            score, ops, e1, e2 = res
             out.append(_gapped_hit(searcher, qseq, h, stat, score, ops, e1,
                                    e2, qa, da, dlo))
         out_all.append(out)
@@ -1028,49 +1030,35 @@ def refine_gapped_all(searcher: ProteinSearcher, queries,
 def _gapped_hit(searcher, qseq, h: Hit, stat, score, ops, e1, e2, qa, da,
                 dlo) -> Hit:
     """``h`` with the gapped alignment's score, statistics, extents and
-    strings."""
+    strings (one vector pass over the alignment's columns)."""
+    ops = np.asarray(ops)
     n_gap = int((ops != 0).sum())
     gap_open_count = int(((ops != 0)
                           & np.concatenate([[True],
                                             np.diff(ops) != 0])).sum())
     aln_len = len(ops)
-    qi, di = qa, da
-    q_chars, d_chars, match = [], [], 0
-    for op in ops:
-        if op == 0:
-            q_chars.append(alphabet.decode(qseq[qi:qi + 1]))
-            d_chars.append(alphabet.decode(searcher.seq[di:di + 1]))
-            if qseq[qi] == searcher.seq[di]:
-                match += 1
-            qi += 1
-            di += 1
-        elif op == 1:
-            q_chars.append(alphabet.decode(qseq[qi:qi + 1]))
-            d_chars.append("-")
-            qi += 1
-        else:
-            q_chars.append("-")
-            d_chars.append(alphabet.decode(searcher.seq[di:di + 1]))
-            di += 1
+    # the query / subject offset of each column that consumes a residue
+    qstep, dstep, both = ops != 2, ops != 1, ops == 0
+    qcol = qa + np.cumsum(qstep) - qstep
+    dcol = da + np.cumsum(dstep) - dstep
+    q_line = np.full(aln_len, ord("-"), np.uint8)
+    d_line = q_line.copy()
+    q_line[qstep] = np.frombuffer(_decode_bytes(qseq[qcol[qstep]]),
+                                  np.uint8)
+    d_line[dstep] = np.frombuffer(_decode_bytes(searcher.seq[dcol[dstep]]),
+                                  np.uint8)
+    qm, dm = qseq[qcol[both]], searcher.seq[dcol[both]]
+    match = int((qm == dm).sum())
+    info = np.full(aln_len, ord(" "), np.uint8)
+    info[both] = np.frombuffer(_info_bytes(qm, dm), np.uint8)
     return dataclasses.replace(
         h, score=score, bits=stat.raw_to_bits(score),
         evalue=stat.raw_to_expect(score), aln_len=aln_len,
         identity=match * 100.0 / max(aln_len, 1),
         mismatch=aln_len - match - n_gap, gap_open=gap_open_count,
         q_beg=qa + 1, q_end=qa + e1, d_beg=da - dlo + 1,
-        d_end=da - dlo + e2,
-        q_aln="".join(q_chars), d_aln="".join(d_chars),
-        info="".join(a if a == b else
-                     ("+" if a != "-" and b != "-"
-                      and _pos_score(a, b) > 0 else " ")
-                     for a, b in zip(q_chars, d_chars)))
-
-
-def _pos_score(a: str, b: str) -> int:
-    ia, ib = alphabet.encode(a)[0], alphabet.encode(b)[0]
-    if ia >= 20 or ib >= 20:
-        return extend.NEGSCORE
-    return int(blosum.BLOSUM62[ia, ib])
+        d_end=da - dlo + e2, q_aln=q_line.tobytes().decode(),
+        d_aln=d_line.tobytes().decode(), info=info.tobytes().decode())
 
 
 # positive-BLOSUM62 table of the match line (row/col 20 = unknown)

@@ -16,9 +16,11 @@ partial), with the same values.  The 4th suffix residue is checked as a
 post-filter on the gathered candidates (the g10 test): together the two
 stages admit exactly the reference's candidate set.
 
-The pipeline probes on the host (``probe_host``: a ragged numpy pass);
-``_codes_for``, ``query_probe_codes`` and ``probe`` are the device twins
-the tests tie it to, run as torch ops on the device of their inputs.
+The host passes (seed codes, the index sorts, ``probe_host``,
+``bucket_counts``) run through the port's C++ host library
+(``native_ext``); ``_codes_for``, ``query_probe_codes`` and ``probe`` are
+the device twins the tests tie them to, run as torch ops on the device
+of their inputs.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import native_ext
 from . import hostops, reduced
 
 # the seed geometry (hostops' passes share it)
@@ -185,8 +188,9 @@ def host_codes(seq: np.ndarray, starts: np.ndarray):
     valid6 is the db-side rule (a valid 6-mer; shorter suffixes
     PAD-match), valid10 the query-side rule.  ``probe_host`` needs only
     the base (untruncated) probe code per position, so the truncated PAD
-    variants are not materialized."""
-    return hostops.host_codes_np(seq, starts, _GROUP21)
+    variants are not materialized.  One pass of the host library
+    (``native_ext.seed_codes``; ``hostops.host_codes_np`` is its twin)."""
+    return native_ext.seed_codes(seq, starts, _GROUP21)[:4]
 
 
 def g10_table(seq: np.ndarray, starts: np.ndarray) -> np.ndarray:
@@ -197,7 +201,7 @@ def g10_table(seq: np.ndarray, starts: np.ndarray) -> np.ndarray:
 
 @dataclasses.dataclass
 class HostSeedView:
-    """Host-resident view of a SeedIndex for the ragged numpy probe.
+    """Host-resident view of a SeedIndex for the ragged host probe.
 
     keys: the sorted probe keys: the uint32 codes directly or, for a
     group-partitioned index, the composite uint64 ``(group << 32) | code``
@@ -267,8 +271,9 @@ def probe_host(view: HostSeedView, qcodes: np.ndarray, qgrp10: np.ndarray,
     (truncated to their first cand_max positions, as the device probe).
     """
     qk = query_keys(view, qcodes, qgroups)
-    return hostops.probe_sorted(view.keys, view.positions, qk, view.g10_at,
-                                np.asarray(qgrp10), cand_max)
+    return native_ext.probe_sorted(view.keys64, view.positions,
+                                   qk.astype(np.uint64), view.g10_at,
+                                   np.asarray(qgrp10, np.int32), cand_max)
 
 
 def bucket_counts(view: HostSeedView, qcodes: np.ndarray, cand_max: int,
@@ -281,9 +286,9 @@ def bucket_counts(view: HostSeedView, qcodes: np.ndarray, cand_max: int,
     # set); qk - 1 turns side="left" into a side="right" search, qk = 0
     # wrapping to -1 < every key
     keys = view.keys64.view(np.int64)
-    hi = hostops.searchsorted_right(keys, qk.view(np.int64))
-    lo = hostops.searchsorted_right(keys,
-                                    (qk - np.uint64(1)).view(np.int64))
+    hi = native_ext.searchsorted_right(keys, qk.view(np.int64))
+    lo = native_ext.searchsorted_right(keys,
+                                       (qk - np.uint64(1)).view(np.int64))
     return np.minimum(hi - lo, cand_max)
 
 
@@ -301,14 +306,15 @@ def build_index_and_view(seq: np.ndarray, starts: np.ndarray,
                          protein_groups: np.ndarray | None = None
                          ) -> tuple[SeedIndex, HostSeedView]:
     """``build_index`` plus the HostSeedView for ``probe_host``, both from
-    the build's own host arrays."""
-    codes, valid6, _, _, g10 = hostops.seed_codes(seq, starts, _GROUP21)
+    the build's own host arrays (seed codes and sorts from the host
+    library)."""
+    codes, valid6, _, _, g10 = native_ext.seed_codes(seq, starts, _GROUP21)
     pos = np.nonzero(valid6)[0].astype(np.int32)
     c = codes[pos]
     del codes, valid6
     gs = None
     if protein_groups is None:
-        order = hostops.argsort_u64(c.astype(np.uint64))
+        order = native_ext.argsort_u64(c.astype(np.uint64))
         view_keys = None          # raw uint32 codes
         c_sorted = c[order]
         pos_sorted = pos[order].astype(np.int32)
@@ -345,9 +351,9 @@ def build_index_and_view(seq: np.ndarray, starts: np.ndarray,
                     continue
                 cg = c[lo:hi]
                 if hi - lo < (1 << 31):
-                    og = hostops.argsort_u32(cg)
+                    og = native_ext.argsort_u32(cg)
                 else:
-                    og = hostops.argsort_u64(cg.astype(np.uint64))
+                    og = native_ext.argsort_u64(cg.astype(np.uint64))
                 c_sorted[lo:hi] = cg[og]
                 view_keys[lo:hi] = c_sorted[lo:hi]
                 view_keys[lo:hi] |= np.uint64(gi) << np.uint64(32)
@@ -364,7 +370,7 @@ def build_index_and_view(seq: np.ndarray, starts: np.ndarray,
                 if not len(sel):
                     continue
                 cg = c[sel]
-                og = hostops.argsort_u64(cg.astype(np.uint64))
+                og = native_ext.argsort_u64(cg.astype(np.uint64))
                 lo, hi = int(gs64[gi]), int(gs64[gi + 1])
                 cs = cg[og]
                 c_sorted[lo:hi] = cs
@@ -381,7 +387,7 @@ def build_index_and_view(seq: np.ndarray, starts: np.ndarray,
             key = (g.astype(np.uint64) << np.uint64(32)) \
                 | c.astype(np.uint64)
             del g
-            order = hostops.argsort_u64(key)
+            order = native_ext.argsort_u64(key)
             view_keys = key[order]
             del key
             c_sorted = c[order]

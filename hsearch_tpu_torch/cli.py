@@ -42,6 +42,9 @@ import sys
 
 import numpy as np
 
+from . import native_ext
+
+
 def _read_kmer_input(path: str, k: int):
     """k-mer FASTA or datapoints file -> (names, kmers (N, k) int32, points).
 
@@ -311,6 +314,16 @@ def _head_first_groups(lab: np.ndarray) -> list[np.ndarray]:
     return groups
 
 
+def _pin_threads(threads: int | None) -> None:
+    """Pin this process's torch host threads and the host library's
+    OpenMP pool (one pool when both load the same OpenMP runtime) to
+    ``threads``, when given, and print the effective count: processes of
+    one box that do not split the cores fight over them."""
+    if threads:
+        eff = native_ext.pin_threads(threads)
+        print(f"[native threads: {eff}]", file=sys.stderr)
+
+
 # a collective's wait: query-mode pcluster processes drift apart by
 # minutes between two exchanges
 _DIST_TIMEOUT_S = 4 * 3600
@@ -321,16 +334,16 @@ def _process_group(args):
     """``--dist-nproc N --dist-pid P --dist-coordinator host:port``: join
     the N-process group (NCCL with ``--device cuda``, gloo with ``cpu``)
     for the block and tear it down after; yields the process index, or
-    None without the flags.  Without ``-t`` a distributed process takes an
-    even share of the cores for torch's host threads."""
+    None without the flags.  ``-t`` pins torch's host threads and the host
+    library's OpenMP pool; without it a distributed process takes an even
+    share of the cores for both."""
     import torch
 
     from .parallel import multihost
     given = {"--dist-nproc": args.dist_nproc, "--dist-pid": args.dist_pid,
              "--dist-coordinator": args.dist_coordinator}
     if all(v is None for v in given.values()):
-        if args.threads:
-            torch.set_num_threads(args.threads)
+        _pin_threads(args.threads)
         yield None
         return
     missing = [k for k, v in given.items() if v is None]
@@ -342,8 +355,8 @@ def _process_group(args):
     if not 0 <= args.dist_pid < args.dist_nproc:
         raise SystemExit(f"{args.tool}: --dist-pid {args.dist_pid} is not "
                          f"in 0..{args.dist_nproc - 1}")
-    torch.set_num_threads(args.threads or max(
-        1, (os.cpu_count() or 1) // args.dist_nproc))
+    _pin_threads(args.threads
+                 or native_ext.default_process_threads(args.dist_nproc))
     multihost.initialize(args.dist_coordinator, args.dist_nproc,
                          args.dist_pid, device=args.device,
                          timeout_s=_DIST_TIMEOUT_S)
@@ -726,8 +739,9 @@ def build_parser() -> argparse.ArgumentParser:
         q.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                        help="device to run on (cpu must be asked for)")
 
-    THREADS_HELP = ("torch host threads for this process (default: torch's;"
-                    " with --dist-nproc N, an even 1/N share of the cores)")
+    THREADS_HELP = ("torch host threads and the C++ host library's OpenMP "
+                    "threads for this process (default: the runtime's; "
+                    "with --dist-nproc N, an even 1/N share of the cores)")
 
     def dist_flags(q):
         q.add_argument("--dist-nproc", type=int, default=None,

@@ -60,8 +60,12 @@ def child_main(pid: int, nproc: int, port: int) -> None:
     import torch
     import torch.distributed as dist
 
+    from hsearch_tpu_torch import native_ext
     from hsearch_tpu_torch.cluster import greedy, greedy_dist, postprocess
     from hsearch_tpu_torch.parallel import multihost
+
+    native_ext.pin_threads(int(os.environ.get(
+        "HSEARCH_THREADS", native_ext.default_process_threads(nproc))))
 
     multihost.initialize(f"127.0.0.1:{port}", nproc, pid, device="cpu",
                          timeout_s=600)

@@ -1,16 +1,17 @@
 """Union-find for transitive cluster merging (own copy of
 hsearch_tpu/cluster/union_find.py).
 
-``connected_components`` labels a graph given as an edge list through
-scipy's sparse connected components; ``UnionFind`` keeps the reference
-semantics (smallest root wins) for incremental use.
+``connected_components`` labels a graph given as an edge list through the
+C++ host library (``native_ext.union_find_labels``); ``UnionFind`` keeps
+the reference semantics (smallest root wins) for incremental use and is
+that function's plain version.
 """
 
 from __future__ import annotations
 
 import numpy as np
-from scipy.sparse import coo_matrix
-from scipy.sparse.csgraph import connected_components as _cc
+
+from .. import native_ext
 
 
 class UnionFind:
@@ -52,13 +53,7 @@ class UnionFind:
 
 def connected_components(n: int, src: np.ndarray,
                          dst: np.ndarray) -> np.ndarray:
-    """(N,) component labels 0..n_components-1 of the undirected graph on
-    n nodes with the given edges.  The numbering is scipy's: partitions
-    equal those of ``UnionFind``, label values need not."""
-    src = np.asarray(src, np.int64)
-    dst = np.asarray(dst, np.int64)
-    # duplicate edges are summed: int32 weights cannot wrap to 0
-    graph = coo_matrix((np.ones(len(src), np.int32), (src, dst)),
-                       shape=(n, n))
-    _, labels = _cc(graph, directed=False)
-    return labels.astype(np.int64)
+    """(N,) component label of each node of the undirected graph on n
+    nodes with the given edges: the component's smallest node, as
+    ``UnionFind.components`` and the JAX package label it."""
+    return native_ext.union_find_labels(n, src, dst)

@@ -2,10 +2,12 @@
 hsearch_tpu/core/io.py).
 
   * FASTA protein databases, whole or streamed in chunks of whole
-    proteins (pure-Python parser; it gives the same ``ProteinDB`` as the
-    JAX package's native parser, including the seeded position-keyed
+    proteins.  ``read_fasta`` of a path with the default options parses
+    in the C++ host library (``native_ext.parse_fasta_bytes``), as the
+    JAX package does; other options, open files and ``stream_fasta`` take
+    the pure-Python parser.  Both apply the seeded position-keyed
     replacement of unknown residues, so the chunks of ``stream_fasta``
-    concatenate to ``read_fasta``'s database).
+    concatenate to ``read_fasta``'s database.
   * "data points" files: a header line ``name#proteinIdx$offset@KMER*count``
     followed by one line of 8L floats.
   * hit "triples": ``center kmer distance`` per line.
@@ -98,6 +100,17 @@ def read_fasta(path_or_file, *, seed: int | None = 0,
     residues are replaced by ``alphabet.randomize_unknown_at`` (keyed by
     seed and position).
     """
+    if isinstance(path_or_file, (str, bytes)) and name_upto_space \
+            and drop_non_alpha:
+        from .. import native_ext
+        with open(path_or_file, "rb") as fh:
+            names, seq, starts = native_ext.parse_fasta_bytes(fh.read())
+        # the library emits 20 for unknown alphabetics; fold to INVALID so
+        # both parsers randomize (or keep) identically
+        seq = np.where(seq == 20, np.uint8(alphabet.INVALID), seq)
+        if seed is not None:
+            seq = alphabet.randomize_unknown_at(seq, seed)
+        return ProteinDB(names=names, seq=seq, starts=starts)
     f, close = _open(path_or_file, "r")
     try:
         recs = list(_records(f, name_upto_space, drop_non_alpha))

@@ -14,7 +14,8 @@ and reports:
   * e-value / identity / alignment-length deltas over improved pairs,
   * family-pair recall for both runs (does refinement change clustering?).
 
-One JSON line on stdout.  HSEARCH_THREADS sets torch's host threads.
+One JSON line on stdout.  HSEARCH_THREADS (default: every core) sets
+torch's host threads and the C++ host library's OpenMP pool.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from .. import _device
+from .. import _device, native_ext
 from ..bench import card
 from ..cluster import pcluster
 from .bench_pcluster_mp import _DB, family_recall, make_corpus
@@ -81,8 +82,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = _device.resolve(args.device)
-    if "HSEARCH_THREADS" in os.environ:
-        torch.set_num_threads(int(os.environ["HSEARCH_THREADS"]))
+    native_ext.pin_threads(int(os.environ.get(
+        "HSEARCH_THREADS", native_ext.default_process_threads(1))))
     n = int(args.n_proteins)
     seqs, n_fam = make_corpus(n)
     if args.indels:

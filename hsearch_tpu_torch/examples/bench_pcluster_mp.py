@@ -18,9 +18,9 @@ The processes compute on ``--device`` (every rank on the one card when
 there is one) and exchange edge rows over gloo: NCCL refuses two ranks on
 one card.  A rank that has not finished within ``--timeout`` seconds fails
 the run, and every process is killed.  Environment knobs, as in the JAX
-package's script: HSEARCH_THREADS (torch host threads per process,
-default an even share of the cores), HSEARCH_KLSH_BITS / HSEARCH_KLSH_SIGMA
-(the KLSH point), HSEARCH_STREAM=1 (hits stream through a counting sink,
+package's script: HSEARCH_THREADS (torch host threads and the C++ host
+library's OpenMP pool per process, default an even share of the cores),
+HSEARCH_KLSH_BITS / HSEARCH_KLSH_SIGMA (the KLSH point), HSEARCH_STREAM=1 (hits stream through a counting sink,
 strings unrendered).
 """
 
@@ -92,11 +92,12 @@ def child_main(pid, nproc, port, n, tables, device, timeout_s):
     import torch
     import torch.distributed as dist
 
+    from .. import native_ext
     from ..cluster import pcluster, pcluster_dist
     from ..parallel import multihost
 
-    torch.set_num_threads(int(os.environ.get(
-        "HSEARCH_THREADS", max(1, (os.cpu_count() or 1) // nproc))))
+    native_ext.pin_threads(int(os.environ.get(
+        "HSEARCH_THREADS", native_ext.default_process_threads(nproc))))
     bits = int(os.environ.get("HSEARCH_KLSH_BITS", pcluster.DEFAULT_BITS))
     sigma = float(os.environ.get("HSEARCH_KLSH_SIGMA",
                                  pcluster.DEFAULT_SIGMA))

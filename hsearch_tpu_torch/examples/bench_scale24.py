@@ -16,7 +16,10 @@ family FASTA:
   * ``single`` runs the single-device engine up the kb ladder 128 -> 256
     -> 512 (256 queries, center blocks of 256, retry off) until the
     sample recall reaches 0.99.  The baseline is the exact oracle on the
-    same device (``vs_baseline`` = IVF q/s over oracle q/s).
+    same device (``vs_baseline`` = IVF q/s over oracle q/s); beside it,
+    ``cpp_qps`` is the reference's single-threaded brute force
+    (``native_ext.brute_search_cpp``) on 2 centers, as the JAX package's
+    script reports it.
     HSEARCH_APPROX_SELECT=1 is accepted and has no effect: the port's
     block select is always exact (``ivf.search``'s ``approx_select``).
 
@@ -41,7 +44,7 @@ import time
 import numpy as np
 import torch
 
-from .. import _device
+from .. import _device, native_ext
 from ..bench import card
 from ..core import alphabet, io as hio
 from ..parallel import multihost
@@ -178,6 +181,9 @@ def main(argv=None) -> list[dict]:
     print(f"# build {build_s:.1f}s B={index.num_blocks}", file=sys.stderr,
           flush=True)
     (gci, gki, gd), oqps = oracle_sample(cen, 64, db, dev)
+    t0 = time.perf_counter()
+    native_ext.brute_search_cpp(cen[:2], db, RADIUS)
+    cpp_qps = 2 / (time.perf_counter() - t0)
     approx = os.environ.get("HSEARCH_APPROX_SELECT", "0") == "1"
     kw = dict(max_hits=512, center_block=256, retry_overflow=False,
               approx_select=approx)
@@ -194,6 +200,7 @@ def main(argv=None) -> list[dict]:
         rows.append({"bench": "scale24_single", "n": n_total, "kb": kb,
                      "build_s": round(build_s, 1), "qps": round(qps, 1),
                      "oracle_qps": round(oqps, 2),
+                     "cpp_qps": round(cpp_qps, 3),
                      "vs_baseline": round(qps / oqps, 1),
                      "sample_recall": round(rep.recall, 4),
                      "peak_rss_gb": round(rss_gb(), 2),

@@ -15,7 +15,8 @@ all-gather and the data-parallel train step against one device on the
 whole batch, then prints ``MP_CHECK_OK p<pid>``.
 
 ``run_local_cluster()`` spawns the processes (CPU tensors, gloo
-collectives, ``MP_CHECK_NDEV`` logical devices each); the tests use it.
+collectives, ``MP_CHECK_NDEV`` logical devices each, ``HSEARCH_THREADS``
+an even share of the cores); the tests use it.
 """
 
 from __future__ import annotations
@@ -48,9 +49,13 @@ def child_main(pid: int, nproc: int, port: int) -> None:
     import torch
     import torch.distributed as dist
 
+    from hsearch_tpu_torch import native_ext
     from hsearch_tpu_torch.parallel import (mesh as mesh_lib, multihost,
                                             sharded, train)
     from hsearch_tpu_torch.search import exact, motif
+
+    native_ext.pin_threads(int(os.environ.get(
+        "HSEARCH_THREADS", native_ext.default_process_threads(nproc))))
 
     multihost.initialize(f"127.0.0.1:{port}", nproc, pid, device="cpu",
                          timeout_s=60)
@@ -149,9 +154,10 @@ def run_local_cluster(nproc: int = 2, ndev_per_proc: int = 2,
         os.path.dirname(os.path.abspath(__file__))))
     env = dict(os.environ)
     env["MP_CHECK_NDEV"] = str(ndev_per_proc)
-    # an even split of the cores, so the children's thread pools do not
-    # fight
-    env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // nproc))
+    # an even split of the cores, so the children's thread pools (torch's
+    # and the host library's) do not fight
+    env.setdefault("HSEARCH_THREADS", str(max(1, (os.cpu_count() or 1)
+                                              // nproc)))
     if extra_env:
         env.update({k: str(v) for k, v in extra_env.items()})
     env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")

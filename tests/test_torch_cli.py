@@ -293,6 +293,33 @@ def test_pcluster_distributed_equals_single(tmp_path, protein_families):
     assert not os.path.exists(dist + ".m8")
 
 
+def test_threads_flag_pins_both_pools(tmp_path, protein_families, capsys):
+    """-t 2 pins torch's host threads and the host library's OpenMP pool;
+    the stderr line names the effective count."""
+    import torch
+
+    from hsearch_tpu_torch import native_ext
+    before = torch.get_num_threads(), native_ext.set_threads(0)
+    try:
+        cli.main(["pcluster", "-d", protein_families, "-o",
+                  str(tmp_path / "o"), "-t", "2", "--device", "cpu"])
+        assert "[native threads: 2]" in capsys.readouterr().err
+        assert torch.get_num_threads() == 2
+        assert native_ext.set_threads(0) == 2
+    finally:
+        torch.set_num_threads(before[0])
+        native_ext.set_threads(before[1])
+
+
+def test_distributed_run_takes_the_even_split(tmp_path, protein_families):
+    """A --dist-* run without -t pins each process to cores / nproc."""
+    from hsearch_tpu_torch import native_ext
+    outs = _run_distributed(["pcluster", "-d", protein_families, "-o",
+                             str(tmp_path / "two")])
+    want = f"[native threads: {native_ext.default_process_threads(2)}]"
+    assert all(want in out for out in outs), outs
+
+
 # ---- the lsh engine ---------------------------------------------------------
 
 LSH_CASES = {

@@ -40,6 +40,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 assert not any(k == "jax" or k.startswith(("jax.", "hsearch_tpu."))
                for k, v in sys.modules.items() if v is not None)
+assert "hsearch_tpu_torch.native_ext" in names
 print(len(names))
 """
 
@@ -55,8 +56,45 @@ def test_imports_without_jax_or_reference():
     # gapped_device, pipeline), metric, parallel/ (mesh, sharded,
     # multihost, _mp_check, train, stream_sharded), the distributed
     # clustering (cluster/{greedy_dist, pcluster_dist, _mp_greedy_check,
-    # _mp_pcluster_check}), bench and examples/ with its 11 scripts
-    assert int(res.stdout.split()[-1]) >= 70
+    # _mp_pcluster_check}), bench and examples/ with its 11 scripts, and
+    # native_ext (the C++ host library's bindings)
+    assert int(res.stdout.split()[-1]) >= 71
+
+
+# the host library built into a fresh directory with jax and hsearch_tpu
+# blocked: its source is the port's csrc/hostops.cpp, and no library of
+# the JAX package's native/ is mapped into the process
+_BLOCKED_BUILD = r"""
+import pathlib, sys
+sys.modules["jax"] = None
+sys.modules["hsearch_tpu"] = None
+import numpy as np
+from hsearch_tpu_torch import native_ext
+default = native_ext.lib_path()
+native_ext._BUILD = pathlib.Path(sys.argv[1])
+order = native_ext.argsort_u64(np.array([3, 1, 2, 1], np.uint64))
+assert order.tolist() == [1, 3, 2, 0]
+maps = open("/proc/self/maps").read()
+print(default)
+print(native_ext.SOURCE)
+print(native_ext._load()._name)
+print("native/" in maps, "libhsearch_native" in maps)
+"""
+
+
+def test_host_library_builds_from_the_ports_source(tmp_path):
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_BUILD,
+                          str(tmp_path)], cwd=REPO, capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    assert res.returncode == 0, res.stderr
+    default, source, loaded, flags = res.stdout.splitlines()
+    pkg = os.path.join(REPO, "hsearch_tpu_torch")
+    assert os.path.dirname(default) == os.path.join(pkg, "_build")
+    assert source == os.path.join(pkg, "csrc", "hostops.cpp")
+    assert os.path.dirname(loaded) == str(tmp_path)
+    assert os.path.basename(loaded) == os.path.basename(default)
+    assert flags == "False False"
 
 
 def _proteins(db):
