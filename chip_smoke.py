@@ -3,7 +3,8 @@ exactness, k-mer clustering, the segmented (stream) engine alone and over
 db shards, the protein aligner and pcluster, the sharded, multi-process and
 training paths, distributed k-mer and protein clustering, CLI.
 
-    python3 chip_smoke.py [--stream-n-log2 N] [--trace-out PATH]
+    python3 chip_smoke.py [--stream-n-log2 N] [--approx-n-log2 N]
+                          [--trace-out PATH]
 
 Needs one CUDA device (exits non-zero without one), ``nvcc`` for the
 kernels and ``g++`` (or ``$CXX``) with OpenMP for the host library, which
@@ -34,6 +35,17 @@ Phases, each of which fails the run on error:
      -> 256 -> 512 until weighted recall >= 0.99, then 3 timed searches);
      kernel launch counts are read around it, and torch.profiler gives
      one search call's device time by kernel;
+ 3c. the approximate block select (ivf.search's approx_select, the
+     counterpart of the JAX package's approx_max_k) on one resident index
+     of 2^23 family rows (phase 3's shape; ``--approx-n-log2``), 256
+     family centers in one center block, retry off, kb 128, 256 and 512,
+     each with the exact and the approximate select, and kb 128 again
+     through HSEARCH_APPROX_SELECT=1: groups, bins L, stage-1 select ms
+     (exact and approximate, CUDA events), ms per call, q/s, weighted
+     recall on a 64-center oracle sample, the select's group recall;
+     fails unless every approximate hit is an oracle hit with the exact
+     select's d^2, the hit sets are identical where L >= groups, and the
+     environment's run equals the explicit one;
   4. the exactness contract (retry_overflow=True equals the oracle) on a
      2^16-point prefix;
   5. the CLI: motif-search --engine ivf equals motif-search-exact,
@@ -140,7 +152,7 @@ Phases, each of which fails the run on error:
      a time), each of which must exit 0; their wall seconds.
 
 Output: free-form progress lines; ``kernels``, ``host_kernels``,
-``main_path``, ``lsh``,
+``main_path``, ``approx_select``, ``lsh``,
 ``cluster``, ``stream``, ``pcluster``, ``sharded``, ``distributed`` and
 ``examples`` lines; the nvidia-smi name/power line; one JSON object ``{"kernels":
 [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -172,6 +184,11 @@ N_LOG2, L, C, RADIUS = 20, 25, 4096, 35.0
 CENTER_BLOCK, MAX_HITS, ORACLE_BLOCK = 1024, 512, 256
 KB_LADDER = (128, 256, 512)
 EXACT_N_LOG2, EXACT_C = 16, 64
+# phase 3c: rows (log2) of its resident index, centers (one center block),
+# the oracle sample its weighted recall is read on, the kb ladder and the
+# timed calls per point
+APPROX_N_LOG2, APPROX_C, APPROX_SAMPLE = 23, 256, 64
+APPROX_KBS, APPROX_REPS = (128, 256, 512), 3
 # phase 6: LSH centers, recall gate of the tuned point
 LSH_C, LSH_RECALL_GATE = 256, 0.98
 # phase 7: cluster_centroid runs on a prefix of this size; the merge's
@@ -379,10 +396,12 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
         exact_n_log2=EXACT_N_LOG2, centroid_n_log2=CENTROID_N_LOG2,
         cli=True, stream_n_log2=STREAM_N_LOG2, stream_c=STREAM_C,
         trace_out=None, pcluster_sizes=None, sharded_sizes=None,
-        bench_args=BENCH_ARGS, example_runs=EXAMPLE_RUNS):
+        bench_args=BENCH_ARGS, example_runs=EXAMPLE_RUNS,
+        approx_n_log2=APPROX_N_LOG2):
     """All phases on ``device``; returns the kernel records and the
-    records of the IVF, LSH, clustering, segmented-engine, pcluster,
-    sharded, distributed and bench/examples phases.  ``pcluster_sizes``
+    records of the IVF, approximate-select, LSH, clustering,
+    segmented-engine, pcluster, sharded, distributed and bench/examples
+    phases.  ``pcluster_sizes``
     and ``sharded_sizes`` override run_pcluster's corpus sizes and
     run_sharded's ``fit`` / ``agree``, ``bench_args`` and
     ``example_runs`` phase 12's runs (rehearsals).  Raises on the first
@@ -601,6 +620,9 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
         pack_cap_frac=4), dev)
     del index
 
+    # ---- phase 3c: the approximate block select -------------------------
+    approx_rec, by_path["ivf_approx"] = run_approx(dev, approx_n_log2)
+
     # ---- phase 4: exactness contract -----------------------------------
     n4 = 1 << exact_n_log2
     c4 = centers[:EXACT_C]
@@ -660,6 +682,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
 
     if dev.type == "cuda":
         need = {"ivf_search": ("sq_distance_prune", "ptable_verify"),
+                "ivf_approx": ("sq_distance_prune", "ptable_verify"),
                 "lsh_search": ("ptable_verify",),
                 "hclust2_merge": ("sq_distance_prune", "ptable_verify"),
                 "stream_search": ("sq_distance_prune", "ptable_verify"),
@@ -718,8 +741,8 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                      "bound_by": lsh_by, "distinct_ids": lsh_distinct},
          "stream_segment": verify_seg},
     ]
-    return (kernels, main_path, lsh, cluster, stream, pcluster, sharded_rec,
-            dist_rec, examples_rec)
+    return (kernels, main_path, approx_rec, lsh, cluster, stream, pcluster,
+            sharded_rec, dist_rec, examples_rec)
 
 
 def _run_module(module, args, env, dev, tmp, timeout=EXAMPLE_TIMEOUT_S):
@@ -804,6 +827,149 @@ def run_examples(dev, kb, bench_args=BENCH_ARGS, runs=EXAMPLE_RUNS):
     rec["phase_s"] = time.perf_counter() - t0
     print(f"phase12 done in {rec['phase_s']:.1f} s", flush=True)
     return rec
+
+
+def run_approx(dev, n_log2):
+    """Phase 3c: the approximate block select (``ivf.search``'s
+    ``approx_select``) on one resident index of 2^n_log2 family rows
+    (phase 3's shape: bs 32, R 35), APPROX_C family centers in one center
+    block, retry off, at each kb of APPROX_KBS with the exact and the
+    approximate select, and the first approximate point again through
+    HSEARCH_APPROX_SELECT=1.  Fails unless every approximate hit is an
+    oracle hit with the exact select's d^2 (bitwise where both found it),
+    the hit sets are identical wherever the select cannot reduce (L >=
+    groups, or the 8k gate shut), and the environment's run equals the
+    explicit one.  Then, outside the counted launches, the stage-1 select
+    alone on the prune kernel's group minima: exact and approximate ms
+    (CUDA events) and the approximate select's group recall.  Returns the
+    record and the kernel launches of the searches."""
+    import torch
+    from hsearch_tpu_torch.core import embedding
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+    from hsearch_tpu_torch.search import evaluate, exact, ivf
+    n = 1 << n_log2
+    t0 = time.perf_counter()
+    fam, chunks = family_chunks(n, L, dev, seed=11,
+                                chunk=1 << min(SEG_LOG2, n_log2))
+    db = np.concatenate([c for c, _ in chunks()])
+    centers = fam[np.random.default_rng(12).choice(
+        len(fam), min(APPROX_C, len(fam)), replace=False)]
+    rec: dict = {"n": n, "c": len(centers), "gen_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    index = ivf.build_index(db, torch.Generator().manual_seed(0),
+                            block_size=32, device=dev)
+    _sync(dev)
+    rec["build_s"] = time.perf_counter() - t0
+    ng = -(-index.num_blocks // ivf._SELECT_GROUP)
+    rec.update(blocks=index.num_blocks, groups=ng)
+    t0 = time.perf_counter()
+    tci, tki, tdd = exact.search_radius(db, centers, RADIUS, device=dev)
+    rec["oracle_s"] = time.perf_counter() - t0
+    truth = dict(zip(zip(tci.tolist(), tki.tolist()),
+                     (tdd.astype(np.float64) ** 2).tolist()))
+    sample = tci < APPROX_SAMPLE
+    print(f"phase3c built 2^{n_log2} rows in {rec['build_s']:.3f} s, "
+          f"B={index.num_blocks}, groups {ng}; oracle {len(tci)} hits in "
+          f"{rec['oracle_s']:.3f} s", flush=True)
+    kw = dict(max_hits=MAX_HITS, center_block=APPROX_C,
+              retry_overflow=False)
+
+    def hits(kb, approx):
+        ci, ki, dd = ivf.search(index, centers, RADIUS, k_blocks=kb,
+                                stats_out={}, approx_select=approx, **kw)
+        return ci, ki, dict(zip(zip(ci.tolist(), ki.tolist()),
+                                dd.tolist()))
+
+    ck.reset_launches()
+    runs = {}
+    for kb in APPROX_KBS:
+        for approx in (False, True):
+            hits(kb, approx)                                  # warm-up
+            t0 = time.perf_counter()
+            for _ in range(APPROX_REPS):
+                res = hits(kb, approx)
+            runs[kb, approx] = res, ((time.perf_counter() - t0) * 1e3
+                                     / APPROX_REPS)
+    env = os.environ.get("HSEARCH_APPROX_SELECT")
+    os.environ["HSEARCH_APPROX_SELECT"] = "1"
+    try:
+        env_hits = hits(APPROX_KBS[0], None)[2]
+    finally:
+        if env is None:
+            del os.environ["HSEARCH_APPROX_SELECT"]
+        else:
+            os.environ["HSEARCH_APPROX_SELECT"] = env
+    launches = ck.launch_counts()
+    if env_hits != runs[APPROX_KBS[0], True][0][2]:
+        raise AssertionError("HSEARCH_APPROX_SELECT=1 differs from "
+                             "approx_select=True")
+
+    key, gmin, _ = ck.sq_distance_prune(
+        torch.as_tensor(embedding.embed_kmers(centers), device=dev),
+        index.block_centroid, index.block_radius, float(np.float32(RADIUS)))
+    rec["points"] = []
+    for kb in APPROX_KBS:
+        (eci, eki, eh), e_ms = runs[kb, False]
+        (aci, aki, ah), a_ms = runs[kb, True]
+        ks = min(kb, ng)
+        bins = ivf._approx_bins(ng, ks)
+        acts = ks * 8 <= ng and bins < ng and dev.type == "cuda"
+        false_pos = set(ah) - set(truth)
+        if false_pos:
+            raise AssertionError(f"kb {kb}: {len(false_pos)} approximate "
+                                 f"hits are not oracle hits")
+        if any(ah[p] != eh[p] for p in set(ah) & set(eh)):
+            raise AssertionError(f"kb {kb}: d differs between the selects")
+        worst = max((abs(d * d - truth[p]) / max(truth[p], 1.0)
+                     for p, d in ah.items()), default=0.0)
+        if worst > 1e-5:
+            raise AssertionError(f"kb {kb}: d^2 differs from the oracle's "
+                                 f"by {worst}")
+        if not acts and ah != eh:
+            raise AssertionError(f"kb {kb}: L {bins} >= {ng} groups but "
+                                 "the hit sets differ")
+        recall = {}
+        for tag, ci, ki in (("exact", eci, eki), ("approx", aci, aki)):
+            m = ci < APPROX_SAMPLE
+            recall[tag] = evaluate.recall_from_indices(
+                tci[sample], tki[sample], tdd[sample], ci[m], ki[m],
+                RADIUS).recall
+        thr = -torch.topk(-gmin, ks, dim=1).values[:, -1:]
+        _, asel = ivf._select_nearest(gmin, ks, True)
+        group_recall = float((torch.gather(gmin, 1, asel) <= thr)
+                             .float().mean())
+        pt = {"kb": kb, "groups": ng, "bins": bins, "acts": acts,
+              "select_ms": _time_ms(
+                  lambda: torch.topk(-gmin, ks, dim=1), dev),
+              "approx_select_ms": _time_ms(
+                  lambda: ivf._select_nearest(gmin, ks, True), dev),
+              "cascade_ms": _time_ms(
+                  lambda: ivf._cascade_top_blocks(key, gmin, kb), dev),
+              "approx_cascade_ms": _time_ms(
+                  lambda: ivf._cascade_top_blocks(key, gmin, kb, True), dev),
+              "ms_per_call": e_ms, "approx_ms_per_call": a_ms,
+              "qps": len(centers) / e_ms * 1e3,
+              "approx_qps": len(centers) / a_ms * 1e3,
+              "recall": recall["exact"], "approx_recall": recall["approx"],
+              "group_recall": group_recall, "hits": len(eh),
+              "approx_hits": len(ah),
+              "approx_hits_not_exact": len(set(ah) - set(eh)),
+              "max_rel_d2_vs_oracle": worst}
+        rec["points"].append(pt)
+        print(f"phase3c kb={kb} groups={ng} L={bins} acts={acts}: stage-1 "
+              f"select {pt['select_ms']:.4f} ms exact / "
+              f"{pt['approx_select_ms']:.4f} ms approx (cascade "
+              f"{pt['cascade_ms']:.4f} / {pt['approx_cascade_ms']:.4f}); "
+              f"{e_ms:.3f} / {a_ms:.3f} ms per call, {pt['qps']:.1f} / "
+              f"{pt['approx_qps']:.1f} q/s; weighted recall "
+              f"{recall['exact']:.6f} / {recall['approx']:.6f}; group "
+              f"recall {group_recall:.6f}; hits {len(eh)} / {len(ah)}",
+              flush=True)
+    rec["launches"] = launches
+    print(f"phase3c HSEARCH_APPROX_SELECT=1 == approx_select=True at kb "
+          f"{APPROX_KBS[0]}; launches {launches}", flush=True)
+    del index, key, gmin
+    return rec, launches
 
 
 def run_lsh(db, centers, truth, dev):
@@ -2507,6 +2673,8 @@ def main(argv=None) -> int:
     ap.add_argument("--stream-n-log2", type=int, default=STREAM_N_LOG2,
                     help="phase 8's database rows, log2 (segments of "
                          f"2^{SEG_LOG2})")
+    ap.add_argument("--approx-n-log2", type=int, default=APPROX_N_LOG2,
+                    help="phase 3c's index rows, log2")
     ap.add_argument("--trace-out", default=None,
                     help="also write phase 8's profiler trace (Chrome "
                          "JSON) to this path")
@@ -2526,12 +2694,14 @@ def main(argv=None) -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
           f" x{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    (kernels, main_path, lsh, cluster, stream, pcluster, sharded,
+    (kernels, main_path, approx, lsh, cluster, stream, pcluster, sharded,
      distributed, examples) = run("cuda", stream_n_log2=args.stream_n_log2,
-                                  trace_out=args.trace_out)
+                                  trace_out=args.trace_out,
+                                  approx_n_log2=args.approx_n_log2)
     print("kernels " + json.dumps(kernels))
     print("host_kernels " + json.dumps(host_kernels(pcluster)))
     print("main_path " + json.dumps(main_path))
+    print("approx_select " + json.dumps(approx))
     print("lsh " + json.dumps(lsh))
     print("cluster " + json.dumps(cluster))
     print("stream " + json.dumps(stream))

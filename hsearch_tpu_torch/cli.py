@@ -799,8 +799,12 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--k-blocks", type=int, default=64)
     q.add_argument("--center-block", type=int, default=256)
     q.add_argument("--approx-select", action="store_true",
-                   help="ivf engine: accepted for compatibility; the block "
-                        "select is always exact in this package")
+                   help="ivf engine: approximate the surviving-block"
+                   " select (ivf.search's approx_select; on the card only,"
+                   " exact on the CPU).  It voids the exactness guarantee:"
+                   " up to ~5%% of the surviving block groups may be"
+                   " missed, never a false positive; gate on measured"
+                   " recall")
     q.add_argument("--no-retry", action="store_true",
                    help="ivf and stream engines: skip the lossless overflow"
                    " retry.  For ivf, k-blocks is then AUTOTUNED to the"

@@ -20,8 +20,10 @@ family FASTA:
     ``cpp_qps`` is the reference's single-threaded brute force
     (``native_ext.brute_search_cpp``) on 2 centers, as the JAX package's
     script reports it.
-    HSEARCH_APPROX_SELECT=1 is accepted and has no effect: the port's
-    block select is always exact (``ivf.search``'s ``approx_select``).
+    HSEARCH_APPROX_SELECT=1 passes ``approx_select=True`` to
+    ``ivf.search``: on the card the cascade's stage-1 group select is
+    then approximate (``ivf._approx_topk_min``); on the CPU it stays
+    exact, as the JAX package's does off the TPU.
 
 Corpus: HSEARCH_SCALE24_NPROT proteins (default 419,431) of 64 aa, each
 embedding one of 4,096 family motifs (25 aa, 1-2 substitutions) at a

@@ -19,7 +19,9 @@ Two operating points, as in the JAX package: ``retry_overflow=False`` with
 a recall-measured k_blocks (``autotune_k_blocks``), whose correctness rests
 on measured weighted recall; and ``retry_overflow=True``, the exactness
 contract, where centers whose surviving blocks overflow k_blocks re-run with
-a 4x cap until none overflow.
+a 4x cap until none overflow.  ``approx_select`` (the JAX package's
+``approx_max_k`` switch) makes the cascade's stage-1 group select
+approximate on the card and voids that contract.
 
 Random draws come from an explicit CPU ``torch.Generator``: the centroid
 sample is drawn on the CPU and moved to the device, so one seed builds the
@@ -29,10 +31,13 @@ same index on the CPU and on the card.
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import _device
 from ..core import embedding
@@ -290,7 +295,79 @@ def build_index(db_kmers: np.ndarray, generator: torch.Generator,
                     host_kmers=host_km, kmer_len=l)
 
 
-def _cascade_top_blocks(key: torch.Tensor, gmin: torch.Tensor, kb: int):
+# lanes of the TPU tile that XLA's approximate top-k reduces a rank-2
+# operand's row in
+_APPROX_TILE = 128
+
+
+def _approx_bins(n: int, k: int, recall_target: float = 0.95) -> int:
+    """Bins that ``jax.lax.approx_max_k(..., aggregate_to_topk=False)``
+    reduces a length-``n`` row to for the top ``k``: XLA's
+    ApproxTopKReductionOutputSize for a rank-2 operand.
+
+    A row of at most one tile is not reduced, nor one whose reduction
+    would be 1.  For k = 1 the row is reduced to one tile.  Otherwise the
+    window count M at which a top-k element collides with another with
+    probability 1 - recall is (k - 1) / -ln(recall), at least one tile;
+    the row shrinks by the largest power of two 2^s <= n / M, in whole
+    tiles: L = ceil(ceil(n / 128) / 2^s) * 128.  ``recall_target`` is
+    taken as float32, as XLA takes it.
+    """
+    t = _APPROX_TILE
+    if n <= t:
+        return n
+    if k == 1:
+        return t
+    m = min(max(int((1.0 - k) / math.log(float(np.float32(recall_target)))),
+                t), n)
+    s = (n // m).bit_length() - 1
+    if s <= 0:
+        return n
+    return -(-(-(-n // t)) // (1 << s)) * t
+
+
+def _approx_topk_min(vals: torch.Tensor, ks: int,
+                     recall_target: float = 0.95):
+    """The ``ks`` smallest of each row of ``vals`` (C, n), approximately:
+    the counterpart of ``jax.lax.approx_max_k(-vals, ks, recall_target)``.
+    Returns (neg, idx) in the layout of ``torch.topk(-vals, ks)``.
+
+    XLA's TPU lowering reduces each row to L = ``_approx_bins(n, ks)``
+    bins, keeping each bin's best element, and then takes the exact top-k
+    of the bins.  Here the row is padded with +inf to m*L and viewed as
+    (m, L), so element j falls in bin j mod L: the strided PartialReduce
+    layout of "TPU-KNN: K Nearest Neighbor Search at Peak FLOP/s" (Chern
+    et al., 2022), which also spreads the neighbouring groups of one IVF
+    cell over different bins.  Each bin keeps its minimum and, on ties,
+    its lowest index (so an all-+inf bin still names a real element);
+    then ``torch.topk`` takes the ks best bins.  Two of the ks smallest
+    that share a bin cost the select one of them: that is the recall
+    loss.  XLA's CPU lowering is an exact sort, so the TPU's own bin
+    layout cannot be observed off the TPU; the layout here is the
+    paper's.  When L >= n the reduction is the identity and the result
+    is exactly ``torch.topk(-vals, ks)``.
+    """
+    c, n = vals.shape
+    nb = _approx_bins(n, ks, recall_target)
+    if nb >= n:
+        return torch.topk(-vals, ks, dim=1)
+    m = -(-n // nb)
+    binned = F.pad(vals, (0, m * nb - n), value=float("inf")).view(c, m, nb)
+    bmin, row = torch.min(binned, dim=1)                       # (C, L)
+    neg, pos = torch.topk(-bmin, ks, dim=1)
+    return neg, torch.gather(row, 1, pos) * nb + pos
+
+
+def _select_nearest(vals: torch.Tensor, k: int, approx: bool):
+    """``torch.topk(-vals, k)``, or the approximate select where ``approx``
+    and the domain holds at least 8k entries (the JAX package's gate)."""
+    if approx and k * 8 <= vals.shape[1]:
+        return _approx_topk_min(vals, k)
+    return torch.topk(-vals, k, dim=1)
+
+
+def _cascade_top_blocks(key: torch.Tensor, gmin: torch.Tensor, kb: int,
+                        approx: bool = False):
     """EXACT nearest-kb block select in O(B/group) select work.
 
     ``key`` (C, Bp) holds the inf-padded keys and ``gmin`` (C, Bp/group)
@@ -300,13 +377,17 @@ def _cascade_top_blocks(key: torch.Tensor, gmin: torch.Tensor, kb: int):
     block sat in an unselected group, each of the kb selected groups would
     hold a distinct block at least as close — so the result is the same
     block set as the flat top-k (tie order may differ).
+
+    ``approx`` makes stage 1 the approximate select (``_select_nearest``)
+    and voids that proof: a group it misses loses its blocks.  Stage 2
+    stays exact over the chosen groups' blocks.
     """
     c, bp = key.shape
     ng = gmin.shape[1]
     group = bp // ng
     kg = key.view(c, ng, group)
     ks = min(kb, ng)
-    _, gsel = torch.topk(-gmin, ks, dim=1)                     # (C, ks)
+    _, gsel = _select_nearest(gmin, ks, approx)                # (C, ks)
     gkeys = torch.gather(kg, 1, gsel[:, :, None].expand(c, ks, group)) \
         .reshape(c, ks * group)
     neg, sel = torch.topk(-gkeys, min(kb, ks * group), dim=1)
@@ -321,9 +402,12 @@ _SELECT_GROUP = cuda_kernels.PRUNE_GROUP
 
 def _search_block_hits(index: IVFIndex, centers: torch.Tensor,
                        centers_emb: torch.Tensor, r: np.float32,
-                       k_blocks: int, max_hits: int):
+                       k_blocks: int, max_hits: int,
+                       approx_select: bool = False):
     """One center block: prune blocks, select the nearest survivors, exact
-    verify, keep each center's nearest ``max_hits`` hits.
+    verify, keep each center's nearest ``max_hits`` hits.  With
+    ``approx_select`` the block select is approximate (``_select_nearest``)
+    on whatever device the index is on; ``search`` decides where it runs.
 
     Returns (ids (C, k) int32 sentinel-N, d2 (C, k) f32, n_hits (C,),
     n_alive (C,)), k = min(max_hits, kb * bs).  Every step is queued on
@@ -336,9 +420,9 @@ def _search_block_hits(index: IVFIndex, centers: torch.Tensor,
         centers_emb, index.block_centroid, index.block_radius, float(r))
     kb = min(k_blocks, b)
     if b >= 4 * _SELECT_GROUP:
-        neg, blk_ids = _cascade_top_blocks(key, gmin, kb)
+        neg, blk_ids = _cascade_top_blocks(key, gmin, kb, approx_select)
     else:
-        neg, blk_ids = torch.topk(-key[:, :b], kb, dim=1)    # (C, kb)
+        neg, blk_ids = _select_nearest(key[:, :b], kb, approx_select)
     ptab = _center_ptables(centers, index.kmer_len)
     # r is float32 and squared in float32, as the JAX package does
     d2m, n_hits = cuda_kernels.ptable_verify(
@@ -355,13 +439,14 @@ def _search_block_hits(index: IVFIndex, centers: torch.Tensor,
 
 def _search_block(index: IVFIndex, centers: torch.Tensor,
                   centers_emb: torch.Tensor, r: np.float32, k_blocks: int,
-                  max_hits: int, cap_frac: int = 4, with_d2: bool = True):
+                  max_hits: int, cap_frac: int = 4, with_d2: bool = True,
+                  approx_select: bool = False):
     """``_search_block_hits`` and the packed transfer: returns (packed flat
     int32 buffer — ops/compact layout with meta = [n_hits (C),
     n_alive (C)]; ids (C, max_hits) sentinel-N and d2 (C, max_hits) as
     the lossless overflow fallback)."""
     out_ids, out_d2, n_hits, n_alive = _search_block_hits(
-        index, centers, centers_emb, r, k_blocks, max_hits)
+        index, centers, centers_emb, r, k_blocks, max_hits, approx_select)
     packed = compact.pack_hits(out_ids, out_d2, index.n_points,
                                meta_vecs=(n_hits, n_alive),
                                cap_frac=cap_frac, with_d2=with_d2)
@@ -411,6 +496,12 @@ def _index_kmers(index: IVFIndex) -> np.ndarray:
                          index.n_points, index.kmer_len)
 
 
+def _approximates(dev: torch.device) -> bool:
+    """Whether ``search`` runs the approximate select on ``dev``: on the
+    card only, as the JAX package runs it only on its TPU backend."""
+    return dev.type == "cuda"
+
+
 def search(index: IVFIndex, centers: np.ndarray, radius: float,
            k_blocks: int = 64, max_hits: int = 256,
            center_block: int = 256, retry_overflow: bool = True,
@@ -436,9 +527,17 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
     default with integer centers and an index holding host k-mers) ships
     one word per hit and recomputes d2 on the host.
 
-    ``approx_select`` is accepted for the JAX package's signature; the
-    block select is always exact here (the approximate select exists only
-    on a TPU backend there).  ``after_dispatch()``, when given, is called
+    ``approx_select=True`` makes the block select approximate
+    (``_approx_topk_min``, the counterpart of ``jax.lax.approx_max_k`` at
+    recall_target 0.95): the cascade's stage-1 group select when
+    ks * 8 <= groups, the flat select when kb * 8 <= blocks.  Up to ~5% of
+    the surviving groups may be missed, never a false positive: the hits
+    are still verified exactly, but the exactness contract is void, so
+    gate on measured recall.  ``None`` reads ``HSEARCH_APPROX_SELECT=1``
+    once per call, as the JAX package does.  It acts only on a CUDA index:
+    the JAX package approximates only on its accelerator (the TPU) and
+    gives the exact select on its CPU, and so does this package.
+    ``after_dispatch()``, when given, is called
     once every center block's device work is queued and before any result
     is read back: the segmented engine queues its next upload there, so
     the copy runs under this search's kernels.
@@ -462,6 +561,9 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
             f"it) — got is_kmers={is_kmers}, host_kmers="
             f"{'present' if host_km is not None else 'absent'}")
     kb_used = min(k_blocks, index.num_blocks)
+    if approx_select is None:
+        approx_select = os.environ.get("HSEARCH_APPROX_SELECT", "0") == "1"
+    approx = bool(approx_select) and _approximates(dev)
     r = np.float32(radius)
     cdtype = np.int32 if is_kmers else np.float32
     # pad to whole center blocks and upload once: a host->device copy
@@ -482,7 +584,7 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
         real = min(center_block, c_total - s)
         pending.append((s, real, _search_block(
             index, cdev[s:s + center_block], edev[s:s + center_block], r,
-            k_blocks, max_hits, pack_cap_frac, transfer_d2)))
+            k_blocks, max_hits, pack_cap_frac, transfer_d2, approx)))
     if after_dispatch is not None:
         after_dispatch()
     max_alive = 0
@@ -502,7 +604,7 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
             cap = max(cap, 1)
             packed, ids, d2 = _search_block(
                 index, cdev[s:s + center_block], edev[s:s + center_block],
-                r, k_blocks, max_hits, cap, transfer_d2)
+                r, k_blocks, max_hits, cap, transfer_d2, approx)
             hits, (n_hits, n_alive) = compact.unpack_hits(
                 packed.cpu().numpy(), (center_block, center_block))
         bad = ((n_alive[:real] > kb_used)

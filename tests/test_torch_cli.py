@@ -70,6 +70,11 @@ CASES = {
                    "centers", False),
     "engine_ivf_points": ("motif-search", ["--engine", "ivf"], "points",
                           False),
+    # --approx-select: exact off the accelerator in both packages
+    "engine_ivf_approx": ("motif-search", ["--engine", "ivf",
+                                           "--block-size", "8",
+                                           "--approx-select"],
+                          "centers", False),
     # the segmented engine, lossless: 3 segments of 64 k-mers
     "engine_stream": ("motif-search", ["--engine", "stream",
                                        "--segment-points", "64",

@@ -4,8 +4,9 @@ tests/test_pallas.py's shapes and tolerances; the CPU dispatch of the
 wrappers; and, on a machine with a CUDA device, each kernel against its
 plain version at ragged shapes (verify also at block size 1, as the LSH
 search calls it), the LSH search on the card against the CPU, the
-segmented engine's pinned, side-stream uploads, and pcluster (the device
-probe, both extension forms and the banded scorer) against the CPU.
+segmented engine's pinned, side-stream uploads, pcluster (the device
+probe, both extension forms and the banded scorer) against the CPU, and
+the IVF engine's approximate block select.
 
 The CUDA cases need neither jax nor tests/conftest.py, so they also run on
 a GPU host without JAX:
@@ -474,6 +475,63 @@ def test_stream_upload_on_cuda(monkeypatch):
     torch.cuda.synchronize(dev)
     for f in ("db_sorted", "order", "block_centroid", "block_radius"):
         assert torch.equal(getattr(b, f), getattr(c, f))
+
+
+@pytest.mark.cuda
+def test_approx_select_on_cuda(monkeypatch):
+    """The approximate block select on the card: each selected key is the
+    first minimum of its strided bin and the ks best bin minima are taken
+    (ties and dead keys included); ivf.search(approx_select=True) on a
+    CUDA index approximates where L < groups and finds a subset of the
+    oracle's hits with the exact select's distances, and where L >= groups
+    finds exactly the exact select's hits."""
+    from hsearch_tpu_torch.bench import protein_like_db
+    from hsearch_tpu_torch.search import exact, ivf
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    vals = rng.integers(0, 50, (64, 12896)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.3] = np.inf
+    vals[0] = np.inf
+    for ks in (128, 256):
+        nb = ivf._approx_bins(vals.shape[1], ks)
+        neg, idx = (x.cpu().numpy() for x in ivf._approx_topk_min(
+            torch.as_tensor(vals, device=dev), ks))
+        binned = np.pad(vals, ((0, 0), (0, (-vals.shape[1]) % nb)),
+                        constant_values=np.inf).reshape(64, -1, nb)
+        first = np.argmin(binned, axis=1) * nb + np.arange(nb)
+        bmin = binned.min(axis=1)
+        b = idx % nb
+        np.testing.assert_array_equal(np.sort(-neg, axis=1),
+                                      np.sort(bmin, axis=1)[:, :ks])
+        np.testing.assert_array_equal(np.take_along_axis(first, b, 1), idx)
+        assert all(len(set(r)) == ks for r in b.tolist())
+    db, centers = protein_like_db(np.random.default_rng(0), 1 << 20, 25,
+                                  query_n=256)
+    index = ivf.build_index(db, torch.Generator().manual_seed(0),
+                            block_size=32, device=dev)
+    ng = -(-index.num_blocks // ivf._SELECT_GROUP)
+    calls = []
+    real = ivf._approx_topk_min
+    monkeypatch.setattr(ivf, "_approx_topk_min",
+                        lambda v, k, *a: calls.append(k) or real(v, k, *a))
+    truth = exact.search_radius(db, centers, 35.0, device=dev)
+    truth = set(zip(truth[0].tolist(), truth[1].tolist()))
+    for kb in (8, 128):
+        res = {}
+        for approx in (False, True):
+            ci, ki, dd = ivf.search(index, centers, 35.0, k_blocks=kb,
+                                    max_hits=512, retry_overflow=False,
+                                    stats_out={}, approx_select=approx)
+            res[approx] = dict(zip(zip(ci.tolist(), ki.tolist()),
+                                   dd.tolist()))
+        assert set(res[True]) <= truth and len(res[True]) > 256
+        if ivf._approx_bins(ng, kb) < ng:
+            assert kb in calls
+            assert all(res[True][p] == res[False][p]
+                       for p in set(res[True]) & set(res[False]))
+        else:
+            assert res[True] == res[False]
+    assert ivf._approx_bins(ng, 8) < ng <= ivf._approx_bins(ng, 128)
 
 
 @pytest.mark.cuda
