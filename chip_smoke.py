@@ -19,7 +19,11 @@ Phases, each of which fails the run on error:
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes (real index data), at ragged small shapes and,
      for prune, past one grid's 65,535 block tiles (C=64, D=8,
-     B=8,388,608: two launches):
+     B=8,388,608: two launches); block_bounds on phase 3's index and on
+     ragged blocks with padding and invalid rows (bs 32, 8 and 33) under
+     ops/kernel_checks.bounds_agreement's tolerance; extend_pairs on
+     ragged mixed lanes (8,192 of 120-residue and 8,197 of 600-residue
+     proteins) bitwise;
      prune's keys within the stated tolerance and flip rule, its group
      minima and alive counts exactly those of its own keys; verify's
      d2m and n_hits bitwise, at the IVF search's block size 32 and at the
@@ -68,13 +72,15 @@ Phases, each of which fails the run on error:
      the same family shape (generated on the card in chunks; R = 35,
      1024 family-center queries, center blocks of 1024, max_hits 512)
      in 4 segments of 2^21 points: per-segment build seconds, host and
-     device bytes; prune and verify at a segment's shape against their
-     plain versions, with their times; exactness fully streamed with the
+     device bytes; prune, verify and block_bounds at a segment's shape
+     against their plain versions, with their times; exactness fully streamed with the
      retry on (== the exact oracle over all rows, d^2 agreeing); the kb
      ladder, retry off, doubling from 128 until weighted recall >= 0.99
      (its last rung, kb = a segment's block count, is lossless); identical
      hits at
-     residency 0, 1/2 and 1 with ms per call, per-segment search walls,
+     residency 0, 1/2 and 1 with ms per call (beside the times when the
+     bounds pass was torch ops) and one block_bounds launch per upload
+     asserted, per-segment search walls,
      upload dispatch and h2d ms (CUDA events on the copy stream); a
      profiler trace of one fully streamed call (device busy, idle share,
      h2d time overlapped by kernels); segivf save and load; Lloyd
@@ -98,10 +104,15 @@ Phases, each of which fails the run on error:
      pre-groups, seed pairs extended, hits, clusters, family-pair recall
      (gate 0.98) and the stage split; a torch.profiler trace of one
      search_all slice over the first 2^14 proteins' groups (device busy,
-     idle share); the first four 8,192-lane batches of that slice through
-     the windowed extension on the card and on the CPU, bitwise, and the
-     same for the chunked extension on 512 proteins of 600 residues, with
-     ms per call; cluster_proteins gapped=True on a 2^14-protein corpus
+     idle share); hits, clusters and recall at 100,000 proteins equal
+     PC_EXPECT; the first four 8,192-lane batches of that slice through
+     extend_batch (the extend_pairs kernel), its plain version on the
+     card and the CPU's window-dense form, bitwise, and the same for 512
+     proteins of 600 residues (the CPU's chunked form), with kernel, card
+     plain (and window-dense) and CPU ms per call and the kernel's bound;
+     cluster_proteins on 2^14 proteins of 600 residues (seconds,
+     align/extend seconds, recall, kernel launches);
+     cluster_proteins gapped=True on a 2^14-protein corpus
      with examples/bench_gapped.py's indels, banded_scores on every
      gap-triggered window card against CPU (bitwise), ms per call and the
      host tracebacks; cluster_proteins on
@@ -179,6 +190,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# int32 outside the tensor cores: 64 int32 lanes per SM (half the float32
+# lanes whose FMAs make the 67 TFLOP/s), 132 SMs at 1.98 GHz
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
 
 N_LOG2, L, C, RADIUS = 20, 25, 4096, 35.0
 CENTER_BLOCK, MAX_HITS, ORACLE_BLOCK = 1024, 512, 256
@@ -201,6 +215,12 @@ CENTROID_N_LOG2, MERGE_PROFILE_C = 18, 4096
 # of the CLI's k-mer file and its queries
 STREAM_N_LOG2, SEG_LOG2, STREAM_C, STREAM_ITER_N_LOG2 = 23, 22, 1024, 25
 STREAM_KB0 = 128
+# ms per call at residency 0, 1/2 and 1 of the default phase 8 run when
+# the bounds pass was a host loop of torch ops (about 240 launches per
+# segment), printed beside this run's (NVIDIA H100 80GB HBM3, 700.00 W)
+TORCH_BOUNDS_STREAM_MS = {"0/4": [172.96, 174.38, 174.37],
+                          "2/4": [113.75, 126.78, 110.72],
+                          "4/4": [57.58, 58.04, 55.50]}
 STREAM_CLI_N_LOG2, STREAM_CLI_Q = 16, 8
 # phase 9: proteins of the cluster_proteins run (the JAX package's first
 # validated rung), its KLSH operating point and family-pair recall gate;
@@ -211,6 +231,10 @@ STREAM_CLI_N_LOG2, STREAM_CLI_Q = 16, 8
 PC_N, PC_BITS, PC_SIGMA, PC_RECALL_GATE = 100_000, 12, 0.1, 0.98
 PC_GAPPED_LOG2, PC_CROSS_LOG2, PC_CLI_LOG2 = 14, 12, 10
 PC_LONG_N, PC_LONG_LEN, PC_PROFILE_N, PC_CMP_BATCHES = 512, 600, 1 << 14, 4
+# the long-protein cluster_proteins run (log2 proteins of PC_LONG_LEN), and
+# the 100,000-protein run's hits, clusters and family-pair recall (6
+# decimals), which the card's run must reproduce
+PC_LONG_LOG2, PC_EXPECT = 14, (404_158, 25_031, 0.999347)
 # phase 9h: gap-triggered windows traced by both tracebacks, and the
 # residue prefix of the suffix array and the brute force
 HOST_GAPPED_WINDOWS, SA_PREFIX = 256, 1 << 18
@@ -300,6 +324,57 @@ def check_verify(ck, *args):
     from hsearch_tpu_torch.ops import kernel_checks
     return kernel_checks.verify_agreement(ck.ptable_verify(*args),
                                           ck.ptable_verify_plain(*args))
+
+
+def check_bounds(ck, db_sorted, order, n):
+    """block_bounds against its plain version on the same inputs, under
+    ops/kernel_checks.bounds_agreement's tolerance."""
+    from hsearch_tpu_torch.ops import distance, kernel_checks
+    coords = distance.const("coords", db_sorted.device)
+    got = ck.block_bounds(db_sorted, order, n, coords)
+    want = ck.block_bounds_plain(db_sorted, order, n, coords)
+    _sync(db_sorted.device)
+    return kernel_checks.bounds_agreement(got, want, coords)
+
+
+def bounds_small_inputs(rng, dev, b, bs, l, n=50_000):
+    """Ragged bounds inputs on ``dev``: family rows, a third of the rows
+    invalid (order == n), every seventh block all padding."""
+    import torch
+    fam = rng.integers(0, 20, (40, bs * l))
+    rows = np.where(rng.random((b, bs * l)) < 0.1,
+                    rng.integers(0, 20, (b, bs * l)),
+                    fam[rng.integers(0, 40, b)]).astype(np.int8)
+    order = rng.integers(0, n, (b, bs)).astype(np.int32)
+    order[rng.random((b, bs)) < 0.33] = n
+    order[::7] = n
+    return (torch.as_tensor(rows, device=dev),
+            torch.as_tensor(order, device=dev), n)
+
+
+def bounds_bound(b, bs, l):
+    """block_bounds' least time: rows, order and the coordinate table read
+    once, centroids and radii written once; float operations per block:
+    the centroid (20 FMAs per coordinate), the (L, 20) table (8 FMAs and a
+    subtraction per entry) and the rows' L-term sums."""
+    nbytes = b * (bs * l + 4.0 * bs + 4.0 * 8 * l + 4.0) + 4.0 * 20 * 8
+    flops = b * (2.0 * 20 * 8 * l + 3.0 * 8 * 20 * l + 1.0 * bs * l)
+    return _bound_ms(flops, nbytes)
+
+
+def extend_bound(six, out):
+    """extend_pairs' least time for these lanes: the (6, B) seeds read and
+    the (8, B) results written once, and each residue of the query and
+    subject extents [beg, end) read once (int32); operations: 4 int32
+    operations (pair index, table lookup, sum, stop test) per residue pair
+    of each lane's final extent, at the int32 rate."""
+    six, out = (x.cpu().numpy().astype(np.int64) for x in (six, out))
+    lo = np.concatenate([out[4], out[6]])
+    hi = np.concatenate([out[5], out[7]])
+    touched = _intervals_union(list(zip(lo.tolist(), hi.tolist())))
+    nbytes = 4.0 * (six.size + out.size + touched)
+    ops = 4.0 * float((out[5] - out[4]).sum())
+    return _bound_ms(ops, nbytes, PEAK_INT32_OPS)
 
 
 def check_prune_past_grid(ck, dev, gen):
@@ -411,7 +486,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     from hsearch_tpu_torch.bench import protein_like_db
     from hsearch_tpu_torch.core import embedding
     from hsearch_tpu_torch.ops import cuda_kernels as ck
-    from hsearch_tpu_torch.ops import distance
+    from hsearch_tpu_torch.ops import distance, kernel_checks
     from hsearch_tpu_torch.search import exact, ivf, motif
     from hsearch_tpu_torch.search.motif import _center_ptables
 
@@ -505,7 +580,32 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
           flush=True)
     print(f"phase2 verify lsh small (5, M 777, bs 1): {verify_lsh_small}",
           flush=True)
-    for name, res in (("prune bench", prune_bench),
+    # bounds at the build's shape (phase 3's index) and ragged, with
+    # padding blocks and invalid rows; the extension on ragged mixed lanes
+    # (kernel_checks.extend_inputs: family, bound, unknown-residue and
+    # low-gate seeds) at 120 and 600 residues
+    bounds_build = check_bounds(ck, idx2.db_sorted, idx2.order,
+                                idx2.n_points)
+    bounds_small = [check_bounds(ck, *bounds_small_inputs(rng, dev, b_, bs_,
+                                                           l_))
+                    for b_, bs_, l_ in ((3001, 32, 25), (777, 8, 10),
+                                        (500, 33, 25))]
+    extend_small = []
+    for n_prot, plen, lanes in ((40, 120, 8192), (20, 600, 8197)):
+        eseq, esix = (torch.as_tensor(x, device=dev) for x in
+                      kernel_checks.extend_inputs(rng, n_prot, plen, lanes))
+        extend_small.append(kernel_checks.extend_agreement(
+            ck.extend_pairs(eseq, eseq, esix, 9),
+            ck.extend_pairs_plain(eseq, eseq, esix, 9)))
+    print(f"phase2 bounds at the build shape B={idx2.num_blocks}: "
+          f"{bounds_build}", flush=True)
+    print(f"phase2 bounds small: {bounds_small}", flush=True)
+    print(f"phase2 extend small (120 and 600 residues): {extend_small}",
+          flush=True)
+    for name, res in (("bounds build shape", bounds_build),
+                      *(("bounds small", r_) for r_ in bounds_small),
+                      *(("extend small", r_) for r_ in extend_small),
+                      ("prune bench", prune_bench),
                       ("prune small", prune_small),
                       ("prune past the grid limit", prune_past),
                       ("verify bench", verify_bench),
@@ -560,13 +660,13 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     # ---- phase 3: the IVF search ---------------------------------------
     # the bench's own measurement (hsearch_tpu_torch.bench.run_ladder): the
     # oracle, the kb ladder to recall >= 0.99 (retry off), 3 timed calls
+    ck.reset_launches()
     t0 = time.perf_counter()
     index = ivf.build_index(db, torch.Generator().manual_seed(0),
                             block_size=32, device=dev)
     _sync(dev)
     build_s = time.perf_counter() - t0
     print(f"phase3 build {build_s:.3f} s, B={index.num_blocks}", flush=True)
-    ck.reset_launches()
     lad = bench.run_ladder(index, db, centers, RADIUS, center_block=c_blk,
                            ladder=KB_LADDER)
     rec3 = lad.record
@@ -657,14 +757,15 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
         dev, stream_n_log2, stream_c, cli, trace_out,
         lloyd=(db, centers, (gci, gki, gd), c_blk, main_path))
     by_path["stream_sharded"] = stream["sharded"]["launches"]
-    prune_seg, verify_seg = seg_kernels
+    prune_seg, verify_seg, bounds_seg = seg_kernels
 
     # ---- phase 9: the aligner and pcluster ---------------------------------
     pcluster, pc_expect = run_pcluster(dev, cli=cli,
                                        **(pcluster_sizes or {}))
     pcluster["host_library"]["build"] = host_build
-    # neither TPU kernel lies on this path: its launches are read to show it
+    # the extension kernel lies on this path, neither search kernel does
     by_path["pcluster"] = pcluster["cluster"]["tpu_kernel_launches"]
+    by_path["pcluster_long"] = pcluster["cluster_long"]["kernel_launches"]
 
     # ---- phase 10: sharded, multi-process and training -----------------
     sharded_rec, sh_launches = run_sharded(
@@ -672,6 +773,14 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     by_path.update(sh_launches)
 
     # ---- phase 11: distributed clustering -------------------------------
+    # the child processes share the card: hand back what this process's
+    # allocator holds in reserve
+    if dev.type == "cuda":
+        print(f"phase11 this process's reserved device bytes before: "
+              f"{torch.cuda.memory_reserved(dev)} (allocated "
+              f"{torch.cuda.memory_allocated(dev)}); emptying the cache",
+              flush=True)
+        torch.cuda.empty_cache()
     dist_rec = run_distributed(
         dev, db, greedy_res, pc_expect,
         (pcluster_sizes or {}).get("gapped_log2", PC_GAPPED_LOG2))
@@ -681,12 +790,17 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     examples_rec = run_examples(dev, kb, bench_args, example_runs)
 
     if dev.type == "cuda":
-        need = {"ivf_search": ("sq_distance_prune", "ptable_verify"),
+        need = {"ivf_search": ("sq_distance_prune", "ptable_verify",
+                               "block_bounds"),
                 "ivf_approx": ("sq_distance_prune", "ptable_verify"),
                 "lsh_search": ("ptable_verify",),
                 "hclust2_merge": ("sq_distance_prune", "ptable_verify"),
-                "stream_search": ("sq_distance_prune", "ptable_verify"),
-                "stream_sharded": ("sq_distance_prune", "ptable_verify"),
+                "stream_search": ("sq_distance_prune", "ptable_verify",
+                                  "block_bounds"),
+                "stream_sharded": ("sq_distance_prune", "ptable_verify",
+                                   "block_bounds"),
+                "pcluster": ("extend_pairs",),
+                "pcluster_long": ("extend_pairs",),
                 "sharded_ivf": ("sq_distance_prune", "ptable_verify"),
                 "sharded_lsh": ("ptable_verify",)}
         for path, names in need.items():
@@ -740,6 +854,44 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                      "plain_ms": lsh_plain_ms, "bound_ms": lsh_bnd,
                      "bound_by": lsh_by, "distinct_ids": lsh_distinct},
          "stream_segment": verify_seg},
+        {"name": "extend_pairs", "route": "cuda",
+         "source": "hsearch_tpu_torch/csrc/extend_pairs.cu",
+         "replaces": "hsearch_tpu/align/extend.py:176 (lax.while_loop "
+                     ":111, :171)",
+         "launches": sum(p.get("extend_pairs", 0) for p in by_path.values()),
+         "launches_by_path": {k: v.get("extend_pairs", 0)
+                              for k, v in by_path.items()},
+         "max_abs_err": max(r_["max_abs_err"] for r_ in (
+             *extend_small, pcluster["extend_windowed"],
+             pcluster["extend_chunked"])),
+         "bitwise": all(r_["bitwise"] for r_ in extend_small),
+         "ms": pcluster["extend_windowed"]["ms_per_call"],
+         "plain_ms": pcluster["extend_windowed"]["plain_ms_per_call"],
+         "bound_ms": pcluster["extend_windowed"]["bound_ms"],
+         "bound_by": pcluster["extend_windowed"]["bound_by"],
+         "bound_basis": "4 int32 operations per residue pair of the final "
+                        "extents at 16.7 TOP/s; seeds, results and the "
+                        "residues of the extents read or written once",
+         "library_ms": None,
+         "shape": ["8,192 lanes", "120-residue proteins"],
+         "corpus_120": pcluster["extend_windowed"],
+         "corpus_600": pcluster["extend_chunked"]},
+        {"name": "block_bounds", "route": "cuda",
+         "source": "hsearch_tpu_torch/csrc/block_bounds.cu",
+         "replaces": "hsearch_tpu/search/stream.py:93 (lax.scan :127); "
+                     "hsearch_tpu/search/ivf.py:367 (lax.scan :384)",
+         "launches": sum(p.get("block_bounds", 0) for p in by_path.values()),
+         "launches_by_path": {k: v.get("block_bounds", 0)
+                              for k, v in by_path.items()},
+         "max_abs_err": max(r_["max_abs_err"] for r_ in (
+             bounds_build, *bounds_small, bounds_seg)),
+         "tolerance": "centroid 1e-6 (|plain| + max|coord|), radius 1e-6 "
+                      "(plain + sqrt(8L) max|coord|), both ways",
+         "ms": bounds_seg["ms"], "plain_ms": bounds_seg["plain_ms"],
+         "bound_ms": bounds_seg["bound_ms"],
+         "bound_by": bounds_seg["bound_by"], "library_ms": None,
+         "shape": bounds_seg["shape"], "stream_segment": bounds_seg,
+         "build_shape": bounds_build},
     ]
     return (kernels, main_path, approx_rec, lsh, cluster, stream, pcluster,
             sharded_rec, dist_rec, examples_rec)
@@ -811,7 +963,8 @@ def run_examples(dev, kb, bench_args=BENCH_ARGS, runs=EXAMPLE_RUNS):
         if b_kb != kb or b_recall < 0.99:
             raise AssertionError(f"bench kb {b_kb} recall {b_recall}; "
                                  f"phase 3 chose kb {kb}")
-        if dev.type == "cuda" and min(launches.values()) <= 0:
+        if dev.type == "cuda" and min(launches[k] for k in (
+                "sq_distance_prune", "ptable_verify")) <= 0:
             raise AssertionError(f"the bench's timed calls launched "
                                  f"{launches}")
         rec["examples"] = {}
@@ -1252,6 +1405,7 @@ def run_stream(dev, n_log2, n_centers, cli, trace_out, lloyd):
     import torch
     from hsearch_tpu_torch.core import embedding
     from hsearch_tpu_torch.ops import cuda_kernels as ck
+    from hsearch_tpu_torch.ops import distance
     from hsearch_tpu_torch.search import evaluate, exact, ivf, stream
     from hsearch_tpu_torch.search.motif import _center_ptables
     from hsearch_tpu_torch.utils import checkpoint
@@ -1364,9 +1518,23 @@ def run_stream(dev, n_log2, n_centers, cli, trace_out, lloyd):
                       *vargs), dev, reps=3),
                   "bound_ms": verify_bnd, "bound_by": verify_by,
                   "library_ms": None}
+    # the bounds pass of an upload, at a segment's shape
+    bounds_res = check_bounds(ck, seg0.db_sorted, seg0.order, seg0.n_points)
+    if not bounds_res["ok"]:
+        raise AssertionError(f"block_bounds at the segment shape disagrees "
+                             f"with its plain version: {bounds_res}")
+    coords = distance.const("coords", dev)
+    bargs = (seg0.db_sorted, seg0.order, seg0.n_points, coords)
+    bounds_bnd, bounds_by = bounds_bound(bq, 32, L)
+    bounds_seg = {"shape": [bq, 32, L], **bounds_res,
+                  "ms": _time_ms(lambda: ck.block_bounds(*bargs), dev),
+                  "plain_ms": _time_ms(lambda: ck.block_bounds_plain(
+                      *bargs), dev, reps=3),
+                  "bound_ms": bounds_bnd, "bound_by": bounds_by,
+                  "library_ms": None}
     print(f"phase8 kernels at segment shape: prune {prune_seg}, verify "
-          f"{verify_seg}", flush=True)
-    del seg0, q_emb, cent, rad, neg, blk, ptab, vargs, alive
+          f"{verify_seg}, bounds {bounds_seg}", flush=True)
+    del seg0, q_emb, cent, rad, neg, blk, ptab, vargs, alive, bargs
 
     def cb_for(kb):
         """A center block that keeps the (C, kb*bs) verify output near
@@ -1434,12 +1602,19 @@ def run_stream(dev, n_log2, n_centers, cli, trace_out, lloyd):
         for _ in range(3):
             st, events = {}, []
             _sync(dev)
+            bb0 = ck.block_bounds.launches
             t0 = time.perf_counter()
             last = stream.search_segmented(sidx, centers, RADIUS,
                                            k_blocks=kb, retry_overflow=False,
                                            stats_out=st, h2d_events=events,
                                            **kw)
             calls.append((time.perf_counter() - t0) * 1e3)
+            # one bounds launch per upload: each streamed segment
+            if dev.type == "cuda" and ck.block_bounds.launches - bb0 \
+                    != ns - k:
+                raise AssertionError(
+                    f"residency {k}/{ns}: {ck.block_bounds.launches - bb0}"
+                    f" block_bounds launches for {ns - k} uploads")
         _sync(dev)
         pairs = _pairs(last[0], last[1])
         if ref is None:
@@ -1450,7 +1625,11 @@ def run_stream(dev, n_log2, n_centers, cli, trace_out, lloyd):
         h2d = {i: s_.elapsed_time(e_) for i, s_, e_ in events}
         res_rec[f"{k}/{ns}"] = {
             "resident_fraction": sidx.resident_fraction(),
-            "ms_per_call": calls, "seg_walls_s": st["seg_walls_s"],
+            "ms_per_call": calls,
+            "torch_op_bounds_ms_per_call": TORCH_BOUNDS_STREAM_MS.get(
+                f"{k}/{ns}") if n_log2 == STREAM_N_LOG2 else None,
+            "block_bounds_per_call": ns - k,
+            "seg_walls_s": st["seg_walls_s"],
             "upload_dispatch_s": st["upload_dispatch_s"],
             "h2d_ms": [h2d.get(i) for i in range(ns)],
             "h2d_gb_per_s": [sidx.segments[i].nbytes / (h2d[i] * 1e6)
@@ -1533,7 +1712,7 @@ def run_stream(dev, n_log2, n_centers, cli, trace_out, lloyd):
         rows = np.concatenate([want, fill])[:m]
         rec["cli"] = run_stream_cli(db[rows], centers[:STREAM_CLI_Q], dev,
                                     m // 4)
-    return rec, launches, (prune_seg, verify_seg)
+    return rec, launches, (prune_seg, verify_seg, bounds_seg)
 
 
 def run_stream_sharded(dev, sidx, centers, truth, kb, b_max, ref, cb_for,
@@ -1661,49 +1840,71 @@ def slice_pairs(searcher):
 
 def compare_extension(searcher, dev):
     """The first PC_CMP_BATCHES batches of the searcher's first slice
-    through its extension form on ``dev`` and through the same form on
-    CPU tensors: bitwise equal.  Returns the form, lanes, and ms per
-    call of each (CUDA events on the card, the host clock on the CPU)."""
+    through ``extend_batch`` on ``dev`` (the extend_pairs kernel on the
+    card), through the kernel's plain version (the chunked form) on the
+    same device and through the searcher's form on CPU tensors (window-
+    dense up to 512 residues, else chunked): all bitwise equal.  Returns
+    the CPU form, lanes, the kernel's ms per call (CUDA events on the
+    card, the host clock on the CPU) beside the plain version's on the
+    same device, the window-dense form's there (when it is the CPU form)
+    and the CPU form's, and the kernel's bound on the first batch."""
     import torch
     from hsearch_tpu_torch.align import extend, seed_index
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+    from hsearch_tpu_torch.ops import kernel_checks
     b = searcher.params.pair_batch
     six = slice_pairs(searcher)[:, :PC_CMP_BATCHES * b]
     seq = torch.as_tensor(searcher.seq)
+    sdev = searcher._seq_dev
     drop = int(searcher.cutoffs.ungap_ext_drop)
+    form = "windowed" if searcher.windowed else "chunked"
+
+    def windowed(s, x):
+        return extend.extend_pairs_windowed(
+            s, s, x, drop, seed_index.SEED_LEN, win_pre=searcher._win,
+            win_post=searcher._win)
 
     def on_cpu(x):
         if searcher.windowed:
-            return extend.extend_pairs_windowed(
-                seq, seq, x, drop, seed_index.SEED_LEN,
-                win_pre=searcher._win, win_post=searcher._win)
-        return extend.extend_pairs_packed(seq, seq, x, drop,
-                                          seed_index.SEED_LEN)
+            return windowed(seq, x)
+        return ck.extend_pairs_plain(seq, seq, x, drop, seed_index.SEED_LEN)
 
     cpu_s = []
     for lo in range(0, six.shape[1], b):
         part = torch.as_tensor(six[:, lo:lo + b])
-        got = searcher.extend_batch(part.to(dev)).cpu()
+        x = part.to(dev)
+        got = searcher.extend_batch(x)
+        res = kernel_checks.extend_agreement(got, ck.extend_pairs_plain(
+            sdev, sdev, x, drop, seed_index.SEED_LEN))
         t0 = time.perf_counter()
         want = on_cpu(part)
         cpu_s.append(time.perf_counter() - t0)
-        if not torch.equal(got, want):
+        if not (res["ok"] and torch.equal(got.cpu(), want)):
             raise AssertionError(
-                f"extension ({'windowed' if searcher.windowed else 'chunked'}"
-                f") on {dev} differs from the CPU at lanes {lo}..{lo + b}: "
-                f"{int((got != want).any(dim=0).sum())} lanes")
+                f"extension ({form} corpus) on {dev} differs from its plain "
+                f"version or the CPU at lanes {lo}..{lo + b}: {res}, "
+                f"{int((got.cpu() != want).any(dim=0).sum())} lanes vs CPU")
     first = torch.as_tensor(six[:, :b], device=dev)
-    return {"form": "windowed" if searcher.windowed else "chunked",
-            "window": searcher._win if searcher.windowed else None,
-            "lanes": int(six.shape[1]), "bitwise": True,
-            "ms_per_call": _time_ms(lambda: searcher.extend_batch(first),
-                                    dev, reps=5),
-            "lanes_per_call": int(first.shape[1]),
-            "cpu_ms_per_call": 1e3 * float(np.mean(cpu_s))}
+    bound, by = extend_bound(first, searcher.extend_batch(first))
+    rec = {"form": form, "window": searcher._win if searcher.windowed
+           else None, "lanes": int(six.shape[1]), "bitwise": True,
+           "max_abs_err": 0.0,
+           "ms_per_call": _time_ms(lambda: searcher.extend_batch(first),
+                                   dev, reps=20),
+           "plain_ms_per_call": _time_ms(lambda: ck.extend_pairs_plain(
+               sdev, sdev, first, drop, seed_index.SEED_LEN), dev, reps=3),
+           "windowed_ms_per_call": _time_ms(lambda: windowed(sdev, first),
+                                            dev, reps=5)
+           if searcher.windowed else None,
+           "lanes_per_call": int(first.shape[1]),
+           "cpu_ms_per_call": 1e3 * float(np.mean(cpu_s)),
+           "bound_ms": bound, "bound_by": by}
+    return rec
 
 
 def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
                  cross_log2=PC_CROSS_LOG2, long_n=PC_LONG_N,
-                 profile_n=PC_PROFILE_N, cli=True):
+                 profile_n=PC_PROFILE_N, long_log2=PC_LONG_LOG2, cli=True):
     """Phase 9: the aligner and pcluster.  Returns the record and, for phase
     11b, the 100,000-protein run's KLSH draw, labels, pre-groups and hit
     rows."""
@@ -1748,6 +1949,10 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
     if recall < PC_RECALL_GATE:
         raise AssertionError(f"family-pair recall {recall} < "
                              f"{PC_RECALL_GATE}")
+    if n == PC_N and (len(res.hits), rec["cluster"]["clusters"],
+                      round(recall, 6)) != PC_EXPECT:
+        raise AssertionError(f"hits, clusters and recall at {PC_N} "
+                             f"proteins are not {PC_EXPECT}")
 
     kp = pcluster.klsh_init(torch.Generator().manual_seed(0),
                             bits=PC_BITS, sigma=PC_SIGMA)
@@ -1785,6 +1990,7 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
     print(f"phase9 extension card vs CPU: windowed "
           f"{json.dumps(rec['extend_windowed'])}; chunked "
           f"{json.dumps(rec['extend_chunked'])}", flush=True)
+    rec["cluster_long"] = run_pcluster_long(dev, long_log2, kw)
 
     # the gapped path, on the corpus with bench_gapped's indels: on the
     # substitution-only corpus no gap pays, so no traceback would run
@@ -1872,6 +2078,48 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
         rec["cli"] = run_pcluster_cli(protein_families(1 << PC_CLI_LOG2)[0],
                                       dev)
     return rec, expect
+
+
+def run_pcluster_long(dev, log2, kw):
+    """cluster_proteins on 2^log2 proteins of PC_LONG_LEN residues (past
+    the 512 up to which the CPU takes the window-dense form): seconds,
+    the stages, the kernel's launches, family-pair recall and the peak
+    of allocated device memory."""
+    import torch
+    from hsearch_tpu_torch.cluster import pcluster
+    from hsearch_tpu_torch.examples.bench_align import (family_pair_recall,
+                                                        protein_families)
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+    from hsearch_tpu_torch.utils import profiling
+    db, n_fam = protein_families(1 << log2, plen=PC_LONG_LEN, seed=3)
+    profiling.reset()
+    ck.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = pcluster.cluster_proteins(db, torch.Generator().manual_seed(0),
+                                    device=dev, **kw)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    stages = {k: v["total_s"] for k, v in profiling.report().items()}
+    rec = {"proteins": 1 << log2, "residues": int(db.starts[-1]),
+           "seconds": secs, "pre_groups": len(res.pre_groups),
+           "pairs_extended": res.pairs_extended, "hits": len(res.hits),
+           "clusters": int(len(np.unique(res.labels))),
+           "family_pair_recall": family_pair_recall(res.labels, n_fam),
+           "align_extend_s": stages.get("align/extend"),
+           "stages_s": stages, "kernel_launches": ck.launch_counts(),
+           "peak_allocated_bytes": peak}
+    print(f"phase9 cluster_proteins on {PC_LONG_LEN}-residue proteins: "
+          f"{json.dumps(rec)}", flush=True)
+    if dev.type == "cuda" and rec["kernel_launches"]["extend_pairs"] <= 0:
+        raise AssertionError("the long-protein run never launched the "
+                             "extension kernel")
+    if not res.hits:
+        raise AssertionError("the long-protein run found no hit")
+    return rec
 
 
 # each host-library binding: the JAX package's C function it replaces

@@ -9,11 +9,17 @@ JAX package:
 
   * ``extend_pairs_windowed``: every lane's residues gathered once into a
     seed-centred window, all five phases dense prefix scans over it; valid
-    while every extension fits the window (the pipeline uses it when the
-    longest indexed protein is at most 512 residues);
+    while every extension fits the window (the pipeline uses it on the
+    CPU when the longest indexed protein is at most 512 residues);
   * ``extend_pairs`` / ``extend_pairs_packed``: the chunked form for any
     length, each phase a host loop of CHUNK-residue steps that ends once
-    every lane is done (the JAX package's ``lax.while_loop``).
+    every lane is done (the JAX package's ``lax.while_loop``); the plain
+    version of the ``extend_pairs`` kernel.
+
+On the card the pipeline runs neither: ``ops/cuda_kernels.extend_pairs``
+(csrc/extend_pairs.cu) extends each lane in one thread, the chunked
+form's algorithm step for step, for every protein length and with no
+host synchronisation.
 
 Semantics (parity with the reference):
   * the seed score adds full BLOSUM62 over the 10-residue local seed

@@ -28,6 +28,7 @@ import torch
 
 from .. import _device, native_ext
 from ..core import alphabet, blosum
+from ..ops import cuda_kernels
 from ..utils import profiling
 from . import blast_stat, extend, gapped_device, hostops, seed_index
 
@@ -293,8 +294,9 @@ class ProteinSearcher:
         return qpos, dpos
 
     def _extend(self, qseq: np.ndarray, qpos: np.ndarray, dpos: np.ndarray):
-        """Batched device extension of one query's seed pairs (chunked
-        form); returns a host dict of result arrays."""
+        """Batched device extension of one query's seed pairs (the
+        ``extend_pairs`` kernel on the card, the chunked form on the CPU);
+        returns a host dict of result arrays."""
         p = self.params
         # floor + strict compare reproduces the reference's float test:
         # continue while deficit <= 8.938 <=> integer deficit <= 8
@@ -306,7 +308,7 @@ class ProteinSearcher:
                            self.starts[pid + 1]]).astype(np.int32)
         inputs = torch.as_tensor(bounds, device=dev)
         qdev = torch.as_tensor(np.asarray(qseq, np.int32), device=dev)
-        parts = [extend.extend_pairs_packed(
+        parts = [cuda_kernels.extend_pairs(
                      qdev, self._seq_dev, inputs[:, s:s + p.pair_batch],
                      drop, seed_index.SEED_LEN)
                  for s in range(0, qpos.shape[0], p.pair_batch)]
@@ -674,20 +676,24 @@ class ProteinSearcher:
 
     @property
     def windowed(self) -> bool:
-        """Whether the batched extension takes the window-dense form:
-        every indexed protein is at most 512 residues long."""
+        """Whether the batched extension on the CPU takes the window-dense
+        form: every indexed protein is at most 512 residues long (else the
+        chunked form).  On a CUDA searcher the ``extend_pairs`` kernel
+        extends every length."""
         return self._win <= 512
 
     def extend_batch(self, six: torch.Tensor) -> torch.Tensor:
         """One (6, B) int32 device batch of packed seed pairs -> its
-        (8, B) int32 PACK_KEYS result, in the form ``windowed`` picks."""
+        (8, B) int32 PACK_KEYS result: the ``extend_pairs`` kernel on a
+        CUDA searcher (no host synchronisation), on the CPU the form
+        ``windowed`` picks.  Every form gives the same bits."""
         drop = int(self.cutoffs.ungap_ext_drop)
-        if self.windowed:
+        if self.windowed and six.device.type == "cpu":
             return extend.extend_pairs_windowed(
                 self._seq_dev, self._seq_dev, six, drop,
                 seed_index.SEED_LEN, win_pre=self._win, win_post=self._win)
-        return extend.extend_pairs_packed(self._seq_dev, self._seq_dev, six,
-                                          drop, seed_index.SEED_LEN)
+        return cuda_kernels.extend_pairs(self._seq_dev, self._seq_dev, six,
+                                         drop, seed_index.SEED_LEN)
 
     def _extend_stream(self, six: np.ndarray) -> dict:
         """Batched device extension of one packed slice: every batch is

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for the hot search ops (counterpart of
-hsearch_tpu/ops/pallas_kernels.py).
+hsearch_tpu/ops/pallas_kernels.py) and for two device loops the JAX
+package runs under ``jax.jit``.
 
   * ``sq_distance_prune`` (csrc/prune.cu): centers vs block centroids as
     a 3xTF32 tensor-core product, with the distance epilogue (norms,
@@ -9,6 +10,14 @@ hsearch_tpu/ops/pallas_kernels.py).
     d2 = sum_l ptab[c, l, kmer_l] of the selected blocks, read from the
     block-sorted database by block id, with the radius test and the hit
     count fused in.
+  * ``extend_pairs`` (csrc/extend_pairs.cu): the aligner's ungapped
+    seed-extend, one thread per seed pair, bitwise the chunked form of
+    align/extend.py (the JAX package's ``lax.while_loop`` phases) for any
+    protein length, with no host round-trip.
+  * ``block_bounds`` (csrc/block_bounds.cu): each index block's embedded
+    centroid and covering radius in one pass over the block-sorted rows
+    (the JAX package's jitted bounds ``lax.scan`` of the IVF build and of
+    the segmented engine's upload).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, into ``_build/`` beside
@@ -25,6 +34,7 @@ that it went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..align import extend as _extend
 from . import distance
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -43,8 +54,11 @@ _BUILD = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = {"sq_distance_prune": "prune.cu",
-           "ptable_verify": "ptable_verify.cu"}
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+           "ptable_verify": "ptable_verify.cu",
+           "extend_pairs": "extend_pairs.cu",
+           "block_bounds": "block_bounds.cu"}
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
 _SIGNATURES = {
     "sq_distance_prune": ("hs_sq_distance_prune",
                           [_P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I,
@@ -52,6 +66,10 @@ _SIGNATURES = {
     "ptable_verify": ("hs_ptable_verify",
                       [_P, _P, _P, _P, _P, _F, _I, _P, _P, _I, _I, _I, _I,
                        _P]),
+    "extend_pairs": ("hs_extend_pairs",
+                     [_P, _L, _P, _L, _P, _L, _P, _P, _I, _I, _P, _I, _P]),
+    "block_bounds": ("hs_block_bounds",
+                     [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -296,8 +314,163 @@ def ptable_verify(ptab: torch.Tensor, db_sorted: torch.Tensor,
 
 ptable_verify.launches = 0
 
+# --------------------------------------------------------------------------
+# extend_pairs
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _extend_tables(device: torch.device):
+    """The flattened 21x21 substitution table and the 21-entry murphy10
+    group table, int32 on ``device``; cached, since a fresh host-to-device
+    copy would synchronise the host with the stream."""
+    return (torch.as_tensor(_extend._SUB.reshape(-1), dtype=torch.int32,
+                            device=device),
+            torch.as_tensor(_extend._GROUP, dtype=torch.int32,
+                            device=device))
+
+
+def extend_pairs_plain(qseq: torch.Tensor, dseq: torch.Tensor,
+                       six: torch.Tensor, drop: int,
+                       seed_len: int = 10) -> torch.Tensor:
+    """Plain version: align/extend.py's chunked form, valid for every
+    protein length (the JAX package's ``extend_pairs_packed``)."""
+    return _extend.extend_pairs_packed(qseq, dseq, six, drop, seed_len)
+
+
+def extend_pairs(qseq: torch.Tensor, dseq: torch.Tensor, six: torch.Tensor,
+                 drop: int, seed_len: int = 10) -> torch.Tensor:
+    """Ungapped seed-extend of one packed batch -> (8, B) int32 PACK_KEYS.
+
+    qseq (Sq,) and dseq (Sd,) int32 residues (AA indices, >= 20 unknown);
+    six (6, B) int32 rows (qpos, dpos, qlo, qhi, dlo, dhi), each row's
+    lanes contiguous (a column slice of a wider batch is read in place);
+    drop the x-drop threshold (raw score).  Bitwise equal to
+    ``extend_pairs_plain`` for every protein length.
+    """
+    if six.device.type == "cpu":
+        return extend_pairs_plain(qseq, dseq, six, drop, seed_len)
+    dev = _check("extend_pairs", {"qseq": qseq, "dseq": dseq},
+                 {"qseq": torch.int32, "dseq": torch.int32})
+    if six.device != dev or six.dtype != torch.int32:
+        raise ValueError(f"extend_pairs: six is {six.dtype} on "
+                         f"{six.device}, expected int32 on {dev}")
+    if six.dim() != 2 or six.shape[0] != 6 or qseq.dim() != 1 \
+            or dseq.dim() != 1:
+        raise ValueError(f"extend_pairs: shapes six {tuple(six.shape)}, "
+                         f"qseq {tuple(qseq.shape)}, dseq "
+                         f"{tuple(dseq.shape)}; expected (6, B), (Sq,), "
+                         "(Sd,)")
+    b = six.shape[1]
+    if b > 1 and six.stride(1) != 1:
+        raise ValueError("extend_pairs: each row of six must be contiguous")
+    out = torch.empty((len(_extend.PACK_KEYS), b), dtype=torch.int32,
+                      device=dev)
+    if b:
+        sub, grp = _extend_tables(dev)
+        _launch("extend_pairs", dev, qseq.data_ptr(), qseq.numel(),
+                dseq.data_ptr(), dseq.numel(), six.data_ptr(),
+                six.stride(0), sub.data_ptr(), grp.data_ptr(), int(drop),
+                int(seed_len), out.data_ptr(), b)
+        extend_pairs.launches += 1
+    return out
+
+
+extend_pairs.launches = 0
+
+
+# --------------------------------------------------------------------------
+# block_bounds
+# --------------------------------------------------------------------------
+
+def _bounds_formula(db_c: torch.Tensor, valid: torch.Tensor,
+                    coords: torch.Tensor):
+    """(m, bs, L) int8 rows and their (m, bs) validity -> each block's
+    embedded centroid (m, 8L) f32 and covering radius (m,).
+
+    Per position, the centroid is the residue counts (exact integers)
+    times the coordinate table over the row count, and a row's squared
+    distance to it is a sum of L entries of a (m, L, 20) table of each
+    residue's squared distance to the centroid's position: no (m, bs, 8L)
+    embedding is made.
+    """
+    m, bs, l = db_c.shape
+    a = db_c.long().transpose(1, 2)                          # (m, L, bs)
+    w = valid[:, None, :].expand(m, l, bs).to(coords.dtype)
+    counts = torch.zeros((m, l, coords.shape[0]), dtype=coords.dtype,
+                         device=coords.device).scatter_add_(2, a, w)
+    cnt = torch.clamp_min(valid.sum(dim=1), 1).to(coords.dtype)
+    cent = (counts @ coords) / cnt[:, None, None]            # (m, L, 8)
+    diff = coords[None, None] - cent[:, :, None, :]          # (m, L, 20, 8)
+    tab = torch.sum(diff * diff, dim=-1)                     # (m, L, 20)
+    d2 = torch.gather(tab, 2, a).sum(dim=1)                  # (m, bs)
+    d2 = torch.where(valid, d2, torch.zeros_like(d2))
+    return cent.reshape(m, -1), torch.sqrt(torch.amax(d2, dim=1))
+
+
+def block_bounds_plain(db_sorted: torch.Tensor, order: torch.Tensor, n: int,
+                       coords: torch.Tensor, bchunk: int = 4096):
+    """Plain version: ``_bounds_formula`` over chunks of ``bchunk`` blocks
+    (unchunked, the (B, L, 20, 8) table of a 2^22-point segment would take
+    3 GB), then -inf radius and zero centroid for blocks with no valid
+    row."""
+    b, bs = order.shape
+    l = db_sorted.shape[1] // bs
+    cent = torch.empty((b, l * coords.shape[1]), dtype=torch.float32,
+                       device=db_sorted.device)
+    rad = torch.empty(b, dtype=torch.float32, device=db_sorted.device)
+    for s in range(0, b, bchunk):
+        valid = order[s:s + bchunk] < n
+        c, r = _bounds_formula(db_sorted[s:s + bchunk].view(-1, bs, l),
+                               valid, coords)
+        real = valid.any(dim=1)
+        rad[s:s + bchunk] = torch.where(real, r,
+                                        torch.full_like(r, -float("inf")))
+        cent[s:s + bchunk] = torch.where(real[:, None], c,
+                                         torch.zeros_like(c))
+    return cent, rad
+
+
+def block_bounds(db_sorted: torch.Tensor, order: torch.Tensor, n: int,
+                 coords: torch.Tensor, bchunk: int = 4096):
+    """Each index block's (centroid (B, 8L) f32, radius (B,) f32).
+
+    db_sorted (B, bs*L) int8 block-sorted rows (AA indices in [0, 20)),
+    order (B, bs) int32 (a row is valid where order < n), coords the
+    (20, 8) f32 coordinate table.  The centroid is the mean embedding of
+    the block's valid rows, the radius the largest distance of one to it;
+    a block with no valid row gets radius -inf and centroid 0.  One launch
+    on a CUDA device; ``bchunk`` sizes only the plain version's chunks.
+    """
+    if db_sorted.device.type == "cpu":
+        return block_bounds_plain(db_sorted, order, n, coords, bchunk)
+    dev = _check("block_bounds",
+                 {"db_sorted": db_sorted, "order": order, "coords": coords},
+                 {"db_sorted": torch.int8, "order": torch.int32,
+                  "coords": torch.float32})
+    b, bs = order.shape
+    l = db_sorted.shape[1] // max(bs, 1)
+    if db_sorted.shape != (b, bs * l) or bs < 1 or coords.shape != (20, 8):
+        raise ValueError(f"block_bounds: shapes db_sorted "
+                         f"{tuple(db_sorted.shape)}, order "
+                         f"{tuple(order.shape)}, coords "
+                         f"{tuple(coords.shape)} do not match")
+    cent = torch.empty((b, l * coords.shape[1]), dtype=torch.float32,
+                       device=dev)
+    rad = torch.empty(b, dtype=torch.float32, device=dev)
+    if b:
+        _launch("block_bounds", dev, db_sorted.data_ptr(), order.data_ptr(),
+                coords.data_ptr(), n, cent.data_ptr(), rad.data_ptr(), b, bs,
+                l)
+        block_bounds.launches += 1
+    return cent, rad
+
+
+block_bounds.launches = 0
+
 KERNELS = {"sq_distance_prune": sq_distance_prune,
-           "ptable_verify": ptable_verify}
+           "ptable_verify": ptable_verify,
+           "extend_pairs": extend_pairs,
+           "block_bounds": block_bounds}
 
 
 def reset_launches() -> None:

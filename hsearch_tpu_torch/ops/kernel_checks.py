@@ -93,3 +93,98 @@ def verify_inputs(rng: np.random.Generator, c: int, kb: int, bs: int,
     neg = -rng.random((c, kb)).astype(np.float32)
     neg[rng.random((c, kb)) < 0.25] = -np.inf
     return ptab, db_sorted, order, blk_ids, neg, 0.45 * l, n
+
+
+def extend_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Verdict on extend_pairs's (8, B) result against extend_pairs_plain's
+    (or any form the plain one equals): bitwise equal in all 8 fields, on
+    some lanes."""
+    same = got.shape == want.shape
+    differ = (got != want).any(dim=0) if same else None
+    return {"lanes": int(want.shape[1]),
+            "lanes_differ": int(differ.sum()) if same else -1,
+            "max_abs_err": float((got - want).abs().max())
+            if same and want.numel() else 0.0,
+            "bitwise": bool(same and torch.equal(got, want)),
+            "ok": bool(same and torch.equal(got, want)
+                       and want.shape[1] > 0)}
+
+
+def bounds_agreement(got, want, coords: torch.Tensor) -> dict:
+    """Verdict on block_bounds's (centroid, radius) against
+    block_bounds_plain's, on the same inputs.
+
+    Blocks with no valid row (plain radius -inf): radius -inf and centroid
+    0, exactly.  Elsewhere, with s the largest |coordinate| and D = 8L the
+    embedding width: each centroid component within 1e-6 (|plain| + s) and
+    each radius within 1e-6 (plain + sqrt(D) s), both ways, so a radius is
+    never smaller than the plain one by more than that.  The scale terms
+    are for values that cancel toward 0: a centroid component is a sum of
+    20 products of residue counts and coordinates, rounded in another
+    order than the plain version's matrix product (a few ulps of s), and a
+    radius moves by at most sqrt(D) times the centroid's error.
+    """
+    (cent, rad), (wcent, wrad) = got, want
+    s = float(coords.abs().max())
+    pad = torch.isneginf(wrad)
+    real = ~pad
+    pad_ok = bool(torch.equal(torch.isneginf(rad), pad)
+                  and (cent[pad] == 0).all())
+    ce = (cent[real] - wcent[real]).abs()
+    re_ = (rad[real] - wrad[real]).abs()
+    cent_ok = bool((ce <= 1e-6 * (wcent[real].abs() + s)).all())
+    rad_ok = bool((re_ <= 1e-6 * (wrad[real] + (cent.shape[1] ** 0.5) * s))
+                  .all())
+    bitwise = bool(torch.equal(cent, wcent) and torch.equal(rad, wrad))
+    rel = (re_ / wrad[real].clamp_min(1e-30)) if re_.numel() else re_
+    return {"blocks": int(rad.shape[0]), "padding_blocks": int(pad.sum()),
+            "max_abs_err": max(float(ce.max()) if ce.numel() else 0.0,
+                               float(re_.max()) if re_.numel() else 0.0),
+            "max_cent_abs_err": float(ce.max()) if ce.numel() else 0.0,
+            "max_rad_rel_err": float(rel.max()) if rel.numel() else 0.0,
+            "min_rad_diff": float((rad[real] - wrad[real]).min())
+            if re_.numel() else 0.0,
+            "bitwise": bitwise,
+            "ok": pad_ok and cent_ok and rad_ok and int(real.sum()) > 0}
+
+
+def extend_inputs(rng: np.random.Generator, n_prot: int = 24,
+                  plen: int = 96, b: int = 512):
+    """Seed pairs (seq, six) for the extension, as numpy int32: a corpus of
+    ``n_prot`` proteins of ``plen`` residues, half copies of one base with
+    3 substitutions each, half random with unknown residues (20, 21, 25),
+    the last all unknown; ``b`` lanes (qpos, dpos, qlo, qhi, dlo, dhi) of
+    random seeds, same-offset family seeds (long greedy and x-drop runs),
+    seeds at a protein's first residue (no backward room) and ending at
+    its last (no forward room), and seeds inside the unknown protein
+    (gate score below MINSCORE)."""
+    base = rng.integers(0, 20, plen)
+    prots = []
+    for i in range(n_prot):
+        if i < n_prot // 2:
+            p = base.copy()
+            p[rng.integers(0, plen, 3)] = rng.integers(0, 20, 3)
+        else:
+            p = rng.integers(0, 20, plen)
+            p[rng.random(plen) < 0.05] = rng.choice([20, 21, 25])
+        prots.append(p)
+    prots[-1] = rng.choice([20, 21, 25], plen)
+    seq = np.concatenate(prots).astype(np.int32)
+    starts = np.arange(n_prot + 1) * plen
+    pid_q = rng.integers(0, n_prot, b)
+    pid_d = rng.integers(0, n_prot, b)
+    off_q = rng.integers(0, plen - 9, b)
+    off_d = rng.integers(0, plen - 9, b)
+    q = b // 8
+    fam = rng.integers(0, n_prot // 2, (2, 2 * q))
+    pid_q[:2 * q], pid_d[:2 * q] = fam
+    off_d[:q] = off_q[:q]                      # same offset: long runs
+    off_q[q:2 * q] = off_d[q:2 * q] = rng.integers(0, 2, q) * (plen - 10)
+    off_q[2 * q:3 * q] = 0                     # seed at qlo
+    off_d[3 * q:4 * q] = plen - 10             # seed ends at dhi
+    pid_q[4 * q:4 * q + 8] = n_prot - 1        # gate < MINSCORE
+    pid_d[4 * q:4 * q + 8] = n_prot - 1
+    qpos, dpos = starts[pid_q] + off_q, starts[pid_d] + off_d
+    six = np.stack([qpos, dpos, starts[pid_q], starts[pid_q] + plen,
+                    starts[pid_d], starts[pid_d] + plen])
+    return seq, six.astype(np.int32)

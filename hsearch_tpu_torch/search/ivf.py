@@ -170,53 +170,35 @@ def _cell_aligned_groups(cells: np.ndarray, n_cells: int,
     return flat.reshape(-1, group)
 
 
-def _block_bounds(db_c: torch.Tensor, valid: torch.Tensor,
-                  coords: torch.Tensor):
-    """(m, bs, L) int8 rows and their (m, bs) validity -> each block's
-    embedded centroid (m, 8L) f32 and covering radius (m,).
+def _block_bounds(db_sorted: torch.Tensor, order: torch.Tensor, n: int,
+                  bchunk: int = 4096):
+    """(B, bs*L) int8 block-sorted rows and their (B, bs) order map -> each
+    block's embedded centroid (B, 8L) f32 and covering radius (B,), rows
+    with order >= n left out (a block with none: radius -inf, centroid 0).
 
-    Per position, the centroid is the residue counts (exact integers)
-    times the coordinate table over the row count, and a row's squared
-    distance to it is a sum of L entries of a (m, L, 20) table of each
-    residue's squared distance to the centroid's position: no (m, bs, 8L)
-    embedding is made.  The one formula for both the build (``_stage2``)
-    and the segmented engine's bounds pass after an upload
-    (search/stream.py), so a streamed segment is bounded bitwise like a
-    resident one.
+    ``cuda_kernels.block_bounds``: one kernel launch on a CUDA device, its
+    plain version in chunks of ``bchunk`` blocks on the CPU.  The one path
+    for both the build (``_stage2``) and the segmented engine's bounds
+    pass after an upload (search/stream.py), so a streamed segment is
+    bounded bitwise like a resident one.
     """
-    m, bs, l = db_c.shape
-    a = db_c.long().transpose(1, 2)                          # (m, L, bs)
-    w = valid[:, None, :].expand(m, l, bs).to(coords.dtype)
-    counts = torch.zeros((m, l, coords.shape[0]), dtype=coords.dtype,
-                         device=coords.device).scatter_add_(2, a, w)
-    cnt = torch.clamp_min(valid.sum(dim=1), 1).to(coords.dtype)
-    cent = (counts @ coords) / cnt[:, None, None]            # (m, L, 8)
-    diff = coords[None, None] - cent[:, :, None, :]          # (m, L, 20, 8)
-    tab = torch.sum(diff * diff, dim=-1)                     # (m, L, 20)
-    d2 = torch.gather(tab, 2, a).sum(dim=1)                  # (m, bs)
-    d2 = torch.where(valid, d2, torch.zeros_like(d2))
-    return cent.reshape(m, -1), torch.sqrt(torch.amax(d2, dim=1))
+    return cuda_kernels.block_bounds(
+        db_sorted, order, n, distance.const("coords", db_sorted.device),
+        bchunk)
 
 
 def _stage2(km8: torch.Tensor, order_blocks: torch.Tensor, n: int,
             block_size: int, bchunk: int = 4096):
-    """Gather the block-sorted database and bound each block, in chunks of
-    ``bchunk`` blocks so the (chunk, bs, 8L) embedding stays small.
+    """Gather the block-sorted database and bound each block
+    (``_block_bounds``; ``bchunk`` sizes the CPU version's chunks).
 
     Returns (db_sorted (B, bs*L) int8, centroid (B, 8L) f32, radius (B,)).
     """
     l = km8.shape[1]
-    coords = distance.const("coords", km8.device)
     km_pad = torch.cat([km8, km8.new_zeros((1, l))])
-    db_out, cent_out, rad_out = [], [], []
-    for s in range(0, order_blocks.shape[0], bchunk):
-        ob_c = order_blocks[s:s + bchunk]
-        db_c = km_pad[ob_c.long()]                       # (m, bs, l) int8
-        cent, rad = _block_bounds(db_c, ob_c < n, coords)
-        db_out.append(db_c.reshape(-1, block_size * l))
-        cent_out.append(cent)
-        rad_out.append(rad)
-    return torch.cat(db_out), torch.cat(cent_out), torch.cat(rad_out)
+    db_sorted = km_pad[order_blocks.long()].reshape(-1, block_size * l)
+    cent, rad = _block_bounds(db_sorted, order_blocks, n, bchunk)
+    return db_sorted, cent, rad
 
 
 def _assign_points(points: torch.Tensor, centroids: torch.Tensor,

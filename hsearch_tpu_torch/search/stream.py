@@ -10,7 +10,9 @@ by plain union.
   * Each segment lives in host memory as its minimal byte set: the
     block-sorted int8 rows and the int32 order map.  Block centroids and
     radii are not stored: they are recomputed on the device after each
-    upload (``_recompute_bounds``, one pass over the rows).
+    upload (``_recompute_bounds``: on the card one launch of the
+    hand-written ``block_bounds`` kernel per segment, csrc/block_bounds.cu,
+    with no host loop).
   * On a CUDA device the byte sets are page-locked once, when the index
     is built or loaded, so each upload is one DMA that needs no staging.
     A search copies segment i+1 on a side stream, and bounds it there,
@@ -92,30 +94,17 @@ class SegmentedIVF:
 
 def _recompute_bounds(db_flat: torch.Tensor, order: torch.Tensor, n: int,
                       l: int, bchunk: int = 4096):
-    """(B, bs*L) int8 rows -> block centroids (B, 8L) f32 and radii (B,),
-    in chunks of ``bchunk`` blocks like the build's stage 2 (unchunked,
-    the (B, L, 20, 8) distance table of a 2^22-point segment would take
-    3 GB).
-
-    The formula is the build's (``ivf._block_bounds``), so a recomputed
-    block is bitwise the built one.  Blocks whose rows are all sentinels
-    get radius -inf and centroid 0: they can never test alive.
+    """(B, bs*L) int8 rows -> block centroids (B, 8L) f32 and radii (B,):
+    the build's bounds (``ivf._block_bounds``), so a recomputed block is
+    bitwise the built one.  On a CUDA device that is one launch of the
+    ``block_bounds`` kernel per segment; on the CPU its plain version in
+    chunks of ``bchunk`` blocks.  Blocks whose rows are all sentinels get
+    radius -inf and centroid 0: they can never test alive.
     """
-    b, bs = order.shape
-    coords = distance.const("coords", db_flat.device)
-    cent = torch.empty((b, l * coords.shape[1]), dtype=torch.float32,
-                       device=db_flat.device)
-    rad = torch.empty(b, dtype=torch.float32, device=db_flat.device)
-    for s in range(0, b, bchunk):
-        valid = order[s:s + bchunk] < n
-        c, r = ivf._block_bounds(db_flat[s:s + bchunk].view(-1, bs, l),
-                                 valid, coords)
-        real = valid.any(dim=1)
-        rad[s:s + bchunk] = torch.where(real, r,
-                                        torch.full_like(r, -float("inf")))
-        cent[s:s + bchunk] = torch.where(real[:, None], c,
-                                         torch.zeros_like(c))
-    return cent, rad
+    if db_flat.shape[1] != order.shape[1] * l:
+        raise ValueError(f"rows of {db_flat.shape[1]} bytes are not "
+                         f"{order.shape[1]} k-mers of length {l}")
+    return ivf._block_bounds(db_flat, order, n, bchunk)
 
 
 def _pinned_like(x: torch.Tensor) -> torch.Tensor:

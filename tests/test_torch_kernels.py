@@ -190,9 +190,24 @@ def test_cpu_wrappers_take_plain_versions(rng):
     for got, want in zip(ck.ptable_verify(*vin, 3.5, 1000),
                          ck.ptable_verify_plain(*vin, 3.5, 1000)):
         assert torch.equal(got, want)
+    seq = torch.as_tensor(rng.integers(0, 22, 300).astype(np.int32))
+    six = torch.as_tensor(np.stack([rng.integers(0, 140, 50),
+                                    rng.integers(150, 280, 50),
+                                    np.zeros(50), np.full(50, 150),
+                                    np.full(50, 150), np.full(50, 300)])
+                          .astype(np.int32))
+    assert torch.equal(ck.extend_pairs(seq, seq, six, 9),
+                       ck.extend_pairs_plain(seq, seq, six, 9))
+    order = torch.as_tensor(rng.integers(0, 90, (7, 4)).astype(np.int32))
+    rows = torch.as_tensor(rng.integers(0, 20, (7, 4 * 5)).astype(np.int8))
+    coords = td.const("coords", torch.device("cpu"))
+    for got, want in zip(ck.block_bounds(rows, order, 60, coords),
+                         ck.block_bounds_plain(rows, order, 60, coords)):
+        assert torch.equal(got, want)
     # the counts record kernel launches only
     assert ck.launch_counts() == {"sq_distance_prune": 0,
-                                  "ptable_verify": 0}
+                                  "ptable_verify": 0, "extend_pairs": 0,
+                                  "block_bounds": 0}
 
 
 def test_non_cpu_tensors_never_fall_back():
@@ -211,6 +226,17 @@ def test_non_cpu_tensors_never_fall_back():
                          torch.empty((2, 5), dtype=torch.int64,
                                      device="meta"),
                          torch.empty((2, 5), device="meta"), 1.0, 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.extend_pairs(torch.empty(40, dtype=torch.int32, device="meta"),
+                        torch.empty(40, dtype=torch.int32, device="meta"),
+                        torch.empty((6, 8), dtype=torch.int32,
+                                    device="meta"), 9)
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.block_bounds(torch.empty((9, 12), dtype=torch.int8,
+                                    device="meta"),
+                        torch.empty((9, 4), dtype=torch.int32,
+                                    device="meta"), 10,
+                        torch.empty((20, 8), device="meta"))
 
 
 # ---- on the card -----------------------------------------------------------
@@ -551,3 +577,118 @@ def test_prune_sqrt_is_sqrtf_on_cuda(tmp_path):
     out = subprocess.run([str(tmp_path / "check")], check=True,
                          capture_output=True, text=True).stdout
     assert out.strip() == "0", f"{out.strip()} inputs differ from sqrtf"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_prot,plen,b", [(24, 96, 1), (24, 96, 37),
+                                           (40, 120, 8192),
+                                           (20, 600, 8197)])
+def test_extend_kernel_matches_plain_on_cuda(n_prot, plen, b):
+    """The extension kernel on ragged batches equals the chunked form on
+    the card and on the CPU in all 8 fields; a column slice of a wider
+    batch is read in place."""
+    dev = _cuda()
+    seq, six = kc.extend_inputs(np.random.default_rng(plen + b), n_prot,
+                                plen, b)
+    s, x = torch.as_tensor(seq, device=dev), torch.as_tensor(six, device=dev)
+    got = ck.extend_pairs(s, s, x, 9)
+    res = kc.extend_agreement(got, ck.extend_pairs_plain(s, s, x, 9))
+    assert res["ok"], res
+    assert torch.equal(got.cpu(), ck.extend_pairs_plain(
+        torch.as_tensor(seq), torch.as_tensor(seq), torch.as_tensor(six),
+        9))
+    if b > 2:
+        assert torch.equal(ck.extend_pairs(s, s, x[:, 1:b - 1], 9),
+                           got[:, 1:b - 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plen", [120, 600])
+def test_extend_batch_on_cuda_is_the_kernel_and_never_syncs(plen):
+    """On a CUDA searcher extend_batch launches the kernel for proteins of
+    120 (window-dense form on the CPU) and 600 residues (chunked form),
+    bitwise the chunked form on the card and the CPU form, and makes no
+    host synchronisation once the tables are on the card."""
+    from hsearch_tpu_torch.align import extend, pipeline, seed_index
+    from hsearch_tpu_torch.examples.bench_align import protein_families
+    dev = _cuda()
+    db, _ = protein_families(256, plen=plen, seed=2)
+    gs, cs = (pipeline.ProteinSearcher(db, device=d) for d in (dev, "cpu"))
+    assert cs.windowed == (plen <= 512)
+    rng = np.random.default_rng(plen)
+    starts = gs.starts
+    pid = rng.integers(0, len(starts) - 1, (2, 8192))
+    off = rng.integers(0, plen - 10, (2, 8192))
+    six = np.stack([starts[pid[0]] + off[0], starts[pid[1]] + off[1],
+                    starts[pid[0]], starts[pid[0] + 1], starts[pid[1]],
+                    starts[pid[1] + 1]]).astype(np.int32)
+    x = torch.as_tensor(six, device=dev)
+    gs.extend_batch(x)
+    torch.cuda.synchronize(dev)
+    before = ck.extend_pairs.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = gs.extend_batch(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ck.extend_pairs.launches == before + 1
+    drop = int(gs.cutoffs.ungap_ext_drop)
+    plain = extend.extend_pairs_packed(gs._seq_dev, gs._seq_dev, x, drop,
+                                       seed_index.SEED_LEN)
+    assert torch.equal(got, plain)
+    assert torch.equal(got.cpu(), cs.extend_batch(torch.as_tensor(six)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,l", [(32, 25), (8, 10), (33, 25), (1, 25)])
+def test_block_bounds_kernel_on_cuda(bs, l):
+    """The bounds kernel against its plain version under
+    kernel_checks.bounds_agreement, with padding blocks and partly valid
+    blocks, at block sizes below, at and above one warp."""
+    dev = _cuda()
+    rng = np.random.default_rng(bs * 100 + l)
+    b, n = 3000, 50_000
+    fam = rng.integers(0, 20, (40, bs * l))
+    rows = np.where(rng.random((b, bs * l)) < 0.1,
+                    rng.integers(0, 20, (b, bs * l)),
+                    fam[rng.integers(0, 40, b)]).astype(np.int8)
+    order = rng.integers(0, n, (b, bs)).astype(np.int32)
+    order[rng.random((b, bs)) < 0.3] = n
+    order[::7] = n                              # padding blocks
+    rows[::7] = 0
+    r_, o_ = torch.as_tensor(rows, device=dev), torch.as_tensor(order,
+                                                                device=dev)
+    coords = td.const("coords", dev)
+    before = ck.block_bounds.launches
+    got = ck.block_bounds(r_, o_, n, coords)
+    assert ck.block_bounds.launches == before + 1
+    res = kc.bounds_agreement(got, ck.block_bounds_plain(r_, o_, n, coords),
+                              coords)
+    assert res["ok"] and res["padding_blocks"] >= -(-b // 7), res
+
+
+@pytest.mark.cuda
+def test_streamed_bounds_are_the_built_index_bounds_on_cuda():
+    """An index built on the card and the same rows uploaded as a segment
+    get bitwise the same bounds, each from one kernel launch."""
+    from hsearch_tpu_torch.search import ivf, stream
+    dev = _cuda()
+    rng = np.random.default_rng(11)
+    fam = rng.integers(0, 20, (256, 25))
+    db = np.where(rng.random((1 << 16, 25)) < 0.08,
+                  rng.integers(0, 20, (1 << 16, 25)),
+                  fam[rng.integers(0, 256, 1 << 16)]).astype(np.int32)
+    ck.reset_launches()
+    idx = ivf.build_index(db, torch.Generator().manual_seed(0), device=dev)
+    seg = stream._to_host_segment(idx, 0, True)
+    up = stream.upload_segment(seg, dev, stream=torch.cuda.Stream(dev))
+    torch.cuda.synchronize(dev)
+    assert ck.launch_counts()["block_bounds"] == 2
+    assert torch.equal(up.block_centroid, idx.block_centroid)
+    assert torch.equal(up.block_radius, idx.block_radius)
+    coords = td.const("coords", dev)
+    res = kc.bounds_agreement(
+        (idx.block_centroid, idx.block_radius),
+        ck.block_bounds_plain(idx.db_sorted, idx.order, idx.n_points,
+                              coords), coords)
+    assert res["ok"], res
