@@ -62,8 +62,11 @@ Phases, each of which fails the run on error:
      point), hits within the oracle's with d^2 agreeing; launch counts
      and a profile of one tuned search call;
   7. k-mer clustering on the same database: cluster_greedy (K=16 L=8
-     W=50 R=35) with its stage times, merge_by_center_distance at radius
-     35 with the kernel launches it made, cluster counts, sampled
+     W=50 R=35) with its stage times and the elect launches it made; the
+     first slab of each size class of its round 0 through the elect
+     kernel and through greedy._elect_plain on the card (bitwise), ms per
+     slab of both and the kernel's bound; merge_by_center_distance at
+     radius 35 with the kernel launches it made, cluster counts, sampled
      same-family pair recall and the invariants (every row once, sampled
      members within R of their head); the merge's index build timed
      alone and a profile of its search over 4096 heads;
@@ -113,9 +116,11 @@ Phases, each of which fails the run on error:
      cluster_proteins on 2^14 proteins of 600 residues (seconds,
      align/extend seconds, recall, kernel launches);
      cluster_proteins gapped=True on a 2^14-protein corpus
-     with examples/bench_gapped.py's indels, banded_scores on every
-     gap-triggered window card against CPU (bitwise), ms per call and the
-     host tracebacks; cluster_proteins on
+     with examples/bench_gapped.py's indels (the extend_pairs and
+     banded_scores launches it made), banded_scores on every
+     gap-triggered window card against CPU and the kernel against
+     banded_scores_plain on the card (bitwise), ms per call of both, the
+     kernel's bound and the host tracebacks; cluster_proteins on
      2^12 proteins on the card and on the CPU with the same KLSH
      parameters (labels and every Hit field identical); the pcluster CLI;
      the corpus's group-partitioned seed index through a ``seed``
@@ -375,6 +380,38 @@ def extend_bound(six, out):
     nbytes = 4.0 * (six.size + out.size + touched)
     ops = 4.0 * float((out[5] - out[4]).sum())
     return _bound_ms(ops, nbytes, PEAK_INT32_OPS)
+
+
+# int32 operations per (pair, scanned row, lane) cell of banded_scores'
+# row update (csrc/banded_scores.cu, counted op by op): F 4 (two
+# subtractions, two maxima), the band test 3, the diagonal 4 (two tests,
+# an addition, a select), A 1, M 3, the prefix maximum 2 (in the chunk
+# and across chunks), E 3, H 2, the row maximum 1, the alive test 1
+BANDED_OPS_PER_CELL = 24
+
+
+def banded_bound(p, lq, ld, w, rows):
+    """banded_scores' least time for P pairs of (P, lq) / (P, ld) int32
+    windows on w = 2*band+1 lanes: q, d, qlen, dlen and the 21x21 table
+    read once, best / bi / bj written once; operations:
+    BANDED_OPS_PER_CELL int32 operations per lane of the ``rows`` rows the
+    pairs scan in all (the plain version's ``stats_out["rows"]`` summed:
+    up to each pair's qlen or the row it dies in), at the int32 rate."""
+    nbytes = 4.0 * (p * lq + p * ld + 2 * p + 21 * 21 + 3 * p)
+    ops = float(BANDED_OPS_PER_CELL) * rows * w
+    return _bound_ms(ops, nbytes, PEAK_INT32_OPS)
+
+
+def elect_bound(nb, b, n_unproc):
+    """elect's least time for NB bucket rows of B slots with n_unproc
+    unprocessed slots in all: the walk reads the distance row of each
+    unprocessed position once (B float32 each; a row of any other
+    position cannot change the result), state and valid (a byte each)
+    once, and writes the (NB, B) int64 parents once; operations: at each
+    unprocessed position, a distance test and a key minimum per slot, at
+    the int32 rate."""
+    nbytes = 4.0 * b * n_unproc + 2.0 * nb * b + 8.0 * nb * b
+    return _bound_ms(2.0 * b * n_unproc, nbytes, PEAK_INT32_OPS)
 
 
 def check_prune_past_grid(ck, dev, gen):
@@ -749,8 +786,9 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     lsh, by_path["lsh_search"] = run_lsh(db, centers, (gci, gki, gd), dev)
 
     # ---- phase 7: k-mer clustering --------------------------------------
-    cluster, by_path["hclust2_merge"], greedy_res = run_cluster(
+    cluster, cluster_launches, greedy_res = run_cluster(
         db, fam, dev, centroid_n_log2)
+    by_path.update(cluster_launches)
 
     # ---- phase 8: the segmented engine ----------------------------------
     stream, by_path["stream_search"], seg_kernels = run_stream(
@@ -766,6 +804,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     # the extension kernel lies on this path, neither search kernel does
     by_path["pcluster"] = pcluster["cluster"]["tpu_kernel_launches"]
     by_path["pcluster_long"] = pcluster["cluster_long"]["kernel_launches"]
+    by_path["pcluster_gapped"] = pcluster["gapped"]["launches"]
 
     # ---- phase 10: sharded, multi-process and training -----------------
     sharded_rec, sh_launches = run_sharded(
@@ -799,8 +838,10 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                                   "block_bounds"),
                 "stream_sharded": ("sq_distance_prune", "ptable_verify",
                                    "block_bounds"),
+                "hclust2_greedy": ("elect",),
                 "pcluster": ("extend_pairs",),
                 "pcluster_long": ("extend_pairs",),
+                "pcluster_gapped": ("extend_pairs", "banded_scores"),
                 "sharded_ivf": ("sq_distance_prune", "ptable_verify"),
                 "sharded_lsh": ("ptable_verify",)}
         for path, names in need.items():
@@ -892,6 +933,44 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
          "bound_by": bounds_seg["bound_by"], "library_ms": None,
          "shape": bounds_seg["shape"], "stream_segment": bounds_seg,
          "build_shape": bounds_build},
+        {"name": "banded_scores", "route": "cuda",
+         "source": "hsearch_tpu_torch/csrc/banded_scores.cu",
+         "replaces": "hsearch_tpu/align/gapped_device.py:39 (lax.scan :114)",
+         "launches": sum(p.get("banded_scores", 0) for p in by_path.values()),
+         "launches_by_path": {k: v.get("banded_scores", 0)
+                              for k, v in by_path.items()},
+         "max_abs_err": pcluster["gapped"]["banded_max_abs_err"],
+         "bitwise": pcluster["gapped"]["banded_bitwise"],
+         "ms": pcluster["gapped"]["banded_ms_per_call"],
+         "plain_ms": pcluster["gapped"]["banded_plain_ms_per_call"],
+         "bound_ms": pcluster["gapped"]["banded_bound_ms"],
+         "bound_by": pcluster["gapped"]["banded_bound_by"],
+         "bound_basis": f"{BANDED_OPS_PER_CELL} int32 operations per lane of "
+                        "each scanned row at 16.7 TOP/s; windows, lengths, "
+                        "table and results moved once",
+         "library_ms": None,
+         "shape": [pcluster["gapped"]["windows"],
+                   *pcluster["gapped"]["window_shape"], "band 32"],
+         "rows_scanned": pcluster["gapped"]["banded_rows_scanned"]},
+        {"name": "elect", "route": "cuda",
+         "source": "hsearch_tpu_torch/csrc/elect.cu",
+         "replaces": "hsearch_tpu/cluster/greedy.py:87 (lax.scan :115)",
+         "launches": sum(p.get("elect", 0) for p in by_path.values()),
+         "launches_by_path": {k: v.get("elect", 0)
+                              for k, v in by_path.items()},
+         "max_abs_err": max(r_["max_abs_err"]
+                            for r_ in cluster["elect_kernel"]),
+         "bitwise": all(r_["bitwise"] for r_ in cluster["elect_kernel"]),
+         # the widest class's first slab; every class's in "slabs"
+         **{k: cluster["elect_kernel"][-1][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "bound_basis": "the distance rows of the unprocessed positions, "
+                        "state, valid and parents moved once; a test and a "
+                        "minimum per slot and position at 16.7 TOP/s",
+         "library_ms": None,
+         "shape": [cluster["elect_kernel"][-1]["rows"],
+                   cluster["elect_kernel"][-1]["b"]],
+         "slabs": cluster["elect_kernel"]},
     ]
     return (kernels, main_path, approx_rec, lsh, cluster, stream, pcluster,
             sharded_rec, dist_rec, examples_rec)
@@ -1200,10 +1279,12 @@ def run_cluster(db, fam, dev, centroid_n_log2):
     n = db.shape[0]
     cfg = greedy.ClusterConfig(hash_k=16, hash_l=8, w=50.0, radius=RADIUS)
     stages: dict = {}
+    ck.reset_launches()
     t0 = time.perf_counter()
     res = greedy.cluster_greedy(db, torch.Generator().manual_seed(1), cfg,
                                 device=dev, stats_out=stages)
     greedy_s = time.perf_counter() - t0
+    greedy_launches = ck.launch_counts()
     lab = np.where(res.parent >= 0, res.parent, np.arange(n))
     n_heads = int((res.merged != 2).sum())
     # invariants: every row once; sampled members within R of their head
@@ -1221,7 +1302,8 @@ def run_cluster(db, fam, dev, centroid_n_log2):
     recall_greedy = pair_recall(lab, fam)
     print(f"phase7 greedy {greedy_s:.3f} s ({stages}), {n_heads} clusters, "
           f"pair recall {recall_greedy:.4f}, max sampled member distance "
-          f"{dmax:.3f}", flush=True)
+          f"{dmax:.3f}, launches {greedy_launches}", flush=True)
+    elect_rec = check_elect(db, cfg, dev)
     ck.reset_launches()
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as wlog:
@@ -1270,6 +1352,7 @@ def run_cluster(db, fam, dev, centroid_n_log2):
           f"{len(members)} clusters, pair recall {recall_centroid:.4f}",
           flush=True)
     rec = {"n": n, "greedy_s": greedy_s, "greedy_stages": stages,
+           "greedy_launches": greedy_launches, "elect_kernel": elect_rec,
            "greedy_clusters": n_heads, "greedy_pair_recall": recall_greedy,
            "merge_s": merge_s, "merge_index_build_s": merge_build_s,
            "merged_clusters": n_merged,
@@ -1277,7 +1360,64 @@ def run_cluster(db, fam, dev, centroid_n_log2):
            "centroid_n": nc, "centroid_s": centroid_s,
            "centroid_clusters": len(members),
            "centroid_pair_recall": recall_centroid}
-    return rec, launches, res
+    return rec, {"hclust2_greedy": greedy_launches,
+                 "hclust2_merge": launches}, res
+
+
+def elect_slabs(db, cfg, dev, seed=1):
+    """Round 0 of ``cluster_greedy(db, Generator().manual_seed(seed),
+    cfg)``: the first slab of bucket rows of each size class, as
+    ``greedy._elect_edges`` hands it to the election; yields (B, d, state,
+    valid), one slab at a time (at B = 256 its distances take 1 GB)."""
+    import torch
+    from hsearch_tpu_torch.cluster import greedy
+    from hsearch_tpu_torch.core import embedding
+    from hsearch_tpu_torch.lsh import pstable
+    n, l = db.shape
+    km_pad = torch.zeros((n + 1, l), dtype=torch.int8, device=dev)
+    km_pad[:n] = torch.as_tensor(db.astype(np.int8), device=dev)
+    state_pad = torch.zeros(n + 1, dtype=torch.uint8, device=dev)
+    state_pad[n] = 2
+    params = greedy._round_params(0, torch.Generator().manual_seed(seed),
+                                  l * embedding.AA_DIM, cfg, None, dev)
+    codes = pstable.hash_codes(km_pad[:n], params, is_kmers=True)[0]
+    mats = greedy._bucket_class_matrices(
+        codes, torch.arange(n, device=dev), cfg.bucket_max, n)
+    for ids, valid in mats:
+        rows = max(1, cfg.slab_elems // ids.shape[1])
+        ids, valid = ids[:rows], valid[:rows]
+        yield (ids.shape[1], greedy._bucket_distances(km_pad[ids]),
+               torch.where(valid, state_pad[ids], 2), valid)
+
+
+def check_elect(db, cfg, dev):
+    """Phase 7: the first slab of each size class of greedy's round 0
+    through the elect kernel and through ``greedy._elect_plain`` on
+    ``dev``, bitwise; ms per slab of both (CUDA events) and the bound."""
+    from hsearch_tpu_torch.cluster import greedy
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+    out = []
+    for b, d, state, valid in elect_slabs(db, cfg, dev):
+        args = (d, state, valid, cfg.radius)
+        got = ck.elect(*args)
+        want = greedy._elect_plain(*args)
+        if not bool((got == want).all()):
+            raise AssertionError(f"elect differs from _elect_plain at B={b}"
+                                 f": {int((got != want).sum())} slots")
+        n_unproc = int(((state == 0) & valid).sum())
+        bound, by = elect_bound(d.shape[0], b, n_unproc)
+        out.append({"b": b, "rows": int(d.shape[0]),
+                    "unprocessed": n_unproc,
+                    "absorbed": int((got >= 0).sum()), "bitwise": True,
+                    "max_abs_err": int((got - want).abs().max()),
+                    "ms": _time_ms(lambda: ck.elect(*args), dev),
+                    "plain_ms": _time_ms(lambda: greedy._elect_plain(*args),
+                                         dev, reps=2),
+                    "bound_ms": bound, "bound_by": by})
+        print(f"phase7 elect kernel == _elect_plain, first slab of class "
+              f"{b}: {json.dumps(out[-1])}", flush=True)
+        del d, state, valid, args, got, want
+    return out
 
 
 def family_chunks(n, l, dev, seed=8, chunk=1 << SEG_LOG2, family_size=64):
@@ -2002,10 +2142,12 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
                                       device=dev, **kw)
     plain_s = time.perf_counter() - t0
     profiling.reset()
+    ck.reset_launches()
     t0 = time.perf_counter()
     gapped = pcluster.cluster_proteins(
         gdb, torch.Generator().manual_seed(0), gapped=True, device=dev, **kw)
     gapped_s = time.perf_counter() - t0
+    gapped_launches = ck.launch_counts()
     gs = first_table_searcher(gdb, plain.pre_groups, dev)
     by_query: dict = {}
     for h in plain.hits:
@@ -2023,6 +2165,18 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
     if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
         raise AssertionError("banded_scores on the card differs from the "
                              "CPU")
+    # the kernel against its plain version on the card, the same windows
+    banded_st: dict = {}
+    plain_dev = gapped_device.banded_scores_plain(
+        *on_dev, sub.to(dev), *bargs, stats_out=banded_st)
+    banded_err = max(int((g - w).abs().max()) if len(g) else 0
+                     for g, w in zip(got, plain_dev))
+    if banded_err:
+        raise AssertionError("the banded_scores kernel differs from "
+                             "banded_scores_plain on the card")
+    banded_rows = int(banded_st["rows"].sum())
+    banded_bnd, banded_by = banded_bound(len(where), q.shape[1], d.shape[1],
+                                         2 * bargs[3] + 1, banded_rows)
     tracebacks = sum(int(s_) > queries[qi][1][i].score
                      for (qi, i), s_ in zip(where, got[0].cpu().tolist()))
     rows = [dataclasses.astuple(h) for h in gapped.hits]
@@ -2032,10 +2186,16 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
         "refine_s": profiling.report()["align/gapped"]["total_s"],
         "windows": len(where), "window_shape": [int(q.shape[1]),
                                                 int(d.shape[1])],
-        "banded_bitwise": True,
+        "launches": gapped_launches,
+        "banded_bitwise": True, "banded_max_abs_err": banded_err,
+        "banded_rows_scanned": banded_rows,
         "banded_ms_per_call": _time_ms(
             lambda: gapped_device.banded_scores(*on_dev, sub.to(dev),
-                                                *bargs), dev, reps=3),
+                                                *bargs), dev),
+        "banded_plain_ms_per_call": _time_ms(
+            lambda: gapped_device.banded_scores_plain(*on_dev, sub.to(dev),
+                                                      *bargs), dev, reps=1),
+        "banded_bound_ms": banded_bnd, "banded_bound_by": banded_by,
         "host_tracebacks": tracebacks,
         "hits_changed": sum(a != dataclasses.astuple(b)
                             for a, b in zip(rows, plain.hits)),
@@ -2044,7 +2204,7 @@ def run_pcluster(dev, n=PC_N, gapped_log2=PC_GAPPED_LOG2,
     print(f"phase9 gapped: {json.dumps(rec['gapped'])}", flush=True)
     windows = [(q[r, :ql[r]], d[r, :dl[r]])
                for r in range(min(HOST_GAPPED_WINDOWS, len(where)))]
-    del gs, queries, q, d, on_dev, got, want
+    del gs, queries, q, d, on_dev, got, want, plain_dev
 
     # the same clustering on the card and on the CPU
     cdb, _ = protein_families(1 << cross_log2)

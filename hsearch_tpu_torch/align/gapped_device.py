@@ -2,10 +2,13 @@
 of hsearch_tpu/align/gapped_device.py).
 
 The score-only companion of the host traceback aligner
-(``hostops.align_gapped``): one loop over query rows, each row a
-vectorized update of the 2*band+1 diagonal lanes across all pairs at once
-(the JAX package's ``lax.scan``; about 20 PyTorch ops per row, int32 and
-bitwise equal to it).
+(``hostops.align_gapped``).  ``banded_scores_plain`` is one loop over
+query rows, each row a vectorized update of the 2*band+1 diagonal lanes
+across all pairs at once (the JAX package's ``lax.scan``; about 20
+PyTorch ops per row, int32 and bitwise equal to it).  ``banded_scores``
+takes it for CPU tensors and runs the whole scan as one launch of the
+``banded_scores`` CUDA kernel (csrc/banded_scores.cu, one warp per pair)
+for CUDA tensors, bitwise equal.
 
 The row recurrence has an intra-row dependency (E, the gap-in-query
 chain).  With affine penalties and gap_open >= gap_ext, a gap opened from
@@ -24,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import cuda_kernels
+
 NEG = -(1 << 28)
 
 
@@ -31,7 +36,18 @@ def banded_scores(q: torch.Tensor, qlen: torch.Tensor, d: torch.Tensor,
                   dlen: torch.Tensor, sub21: torch.Tensor, gap_open: int,
                   gap_ext: int, drop: int, band: int):
     """(P, Lq), (P,), (P, Ld), (P,) -> (score, q_ext, d_ext) per pair, on
-    the device of ``q``.
+    the device of ``q``: ``banded_scores_plain`` on the CPU, one launch
+    of the CUDA kernel on the card (``cuda_kernels.banded_scores``)."""
+    return cuda_kernels.banded_scores(q, qlen, d, dlen, sub21, gap_open,
+                                      gap_ext, drop, band)
+
+
+def banded_scores_plain(q: torch.Tensor, qlen: torch.Tensor,
+                        d: torch.Tensor, dlen: torch.Tensor,
+                        sub21: torch.Tensor, gap_open: int, gap_ext: int,
+                        drop: int, band: int, stats_out: dict | None = None):
+    """(P, Lq), (P,), (P, Ld), (P,) -> (score, q_ext, d_ext) per pair, on
+    the device of ``q``, as a host loop over the query rows.
 
     Matches the traceback aligner's score and extents (requires
     gap_open >= gap_ext >= 0, true of the BLAST 11/1 defaults): global
@@ -39,7 +55,11 @@ def banded_scores(q: torch.Tensor, qlen: torch.Tensor, d: torch.Tensor,
     of length g costs open + (g-1)*ext, best cell floored at 0,
     first-best in row-major order, x-drop row abandonment for rows
     i > 1.  Sequences hold AA indices 0..20 (20 = unknown); rows and
-    columns beyond qlen/dlen are inactive."""
+    columns beyond qlen/dlen are inactive.
+
+    ``stats_out`` receives ``rows``: per pair, the rows that can still
+    change its result (i <= qlen and not yet dead), which is where the
+    kernel stops scanning."""
     dev = q.device
     p, lq = q.shape
     w = 2 * band + 1
@@ -72,7 +92,10 @@ def banded_scores(q: torch.Tensor, qlen: torch.Tensor, d: torch.Tensor,
     bi = torch.zeros(p, dtype=torch.int32, device=dev)
     bj = torch.full((p,), -band, dtype=torch.int32, device=dev)
     dead = torch.zeros(p, dtype=torch.bool, device=dev)
+    rows = torch.zeros(p, dtype=torch.int32, device=dev)
     for i in range(1, lq + 1):
+        if stats_out is not None:
+            rows += (~dead) & (i <= qlen)
         j = (i - band) + lanes[None, :]                       # (1, w)
         in_band = (j >= 0) & (j <= dlen[:, None])
         # F: gap in d, from (i-1, jj+1)
@@ -103,4 +126,6 @@ def banded_scores(q: torch.Tensor, qlen: torch.Tensor, d: torch.Tensor,
         if i > 1:
             dead = dead | ~alive
         h_prev, f_prev = h, f
+    if stats_out is not None:
+        stats_out["rows"] = rows
     return best, bi, bj

@@ -17,14 +17,18 @@ state.  On the device:
   hash      -> fused gather-sum projection + packed codes (lsh/pstable.py)
   bucketing -> stable sort of the codes, then size-classed bucket rows
                (widths 4, 16, 64, ..., bucket_max) built by scatter
-  walk      -> "first-fit leader election": a loop over the B bucket
-               positions on (rows, B) tensors, with the (rows, B, B)
-               in-bucket distances from one batched norm-identity GEMM
-               in full float32
+  walk      -> "first-fit leader election" over the B bucket positions of
+               each row, with the (rows, B, B) in-bucket distances from
+               one batched norm-identity GEMM in full float32: on the
+               card one launch of the ``elect`` CUDA kernel per slab
+               (csrc/elect.cu, one block per row), on the CPU
+               ``_elect_plain``, a loop over the positions on (rows, B)
+               tensors
   update    -> parent / state scatters; slot N absorbs the padding's.
 
 ``_elect_reference`` encodes the reference walk directly and is the
-parity oracle of the election.
+parity oracle of the election; ``_elect_plain`` is the kernel's plain
+version.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import torch
 from .. import _device
 from ..core import embedding
 from ..lsh import pstable
-from ..ops import distance
+from ..ops import cuda_kernels, distance
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +92,15 @@ def _elect_reference(d: np.ndarray, state: np.ndarray, valid: np.ndarray,
 
 def _elect_device(d: torch.Tensor, state: torch.Tensor, valid: torch.Tensor,
                   radius: float) -> torch.Tensor:
-    """Batched first-fit leader election.
+    """Batched first-fit leader election: ``_elect_plain`` on the CPU, one
+    launch of the CUDA kernel on the card (``cuda_kernels.elect``)."""
+    return cuda_kernels.elect(d, state, valid, radius)
+
+
+def _elect_plain(d: torch.Tensor, state: torch.Tensor, valid: torch.Tensor,
+                 radius: float) -> torch.Tensor:
+    """Batched first-fit leader election as a host loop over the B
+    positions.
 
     d: (NB, B, B) distances, state: (NB, B) 0/1, valid: (NB, B) bool.
     Matching priority = pre-existing centers in bucket order, then
@@ -245,10 +257,12 @@ def _round_params(rnd: int, generator: torch.Generator, dim: int,
 def _elect_rows(km_pad: torch.Tensor, state_pad: torch.Tensor,
                 ids: torch.Tensor, valid: torch.Tensor, radius: float):
     """The elections of one slab of bucket rows against the round-start
-    state: (rows, B) int64 parent slots (-1 where none)."""
+    state: (rows, B) int64 parent slots (-1 where none).  ``valid`` may
+    be a strided view (a process's rows r % nproc == pid); the kernel
+    reads it contiguous."""
     state = torch.where(valid, state_pad[ids], 2)
-    return _elect_device(_bucket_distances(km_pad[ids]), state, valid,
-                         radius)
+    return _elect_device(_bucket_distances(km_pad[ids]), state,
+                         valid.contiguous(), radius)
 
 
 def _elect_edges(km_pad: torch.Tensor, state_pad: torch.Tensor, mats,

@@ -18,6 +18,14 @@ package runs under ``jax.jit``.
     centroid and covering radius in one pass over the block-sorted rows
     (the JAX package's jitted bounds ``lax.scan`` of the IVF build and of
     the segmented engine's upload).
+  * ``banded_scores`` (csrc/banded_scores.cu): the ``--gapped``
+    refinement's banded affine-gap row scan, one warp per window pair,
+    bitwise align/gapped_device.py's ``banded_scores_plain`` (the JAX
+    package's ``lax.scan`` over query rows).
+  * ``elect`` (csrc/elect.cu): greedy k-mer clustering's first-fit
+    leader election, one block per bucket row, bitwise
+    cluster/greedy.py's ``_elect_plain`` (the JAX package's ``lax.scan``
+    over bucket positions).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, into ``_build/`` beside
@@ -56,7 +64,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {"sq_distance_prune": "prune.cu",
            "ptable_verify": "ptable_verify.cu",
            "extend_pairs": "extend_pairs.cu",
-           "block_bounds": "block_bounds.cu"}
+           "block_bounds": "block_bounds.cu",
+           "banded_scores": "banded_scores.cu",
+           "elect": "elect.cu"}
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _SIGNATURES = {
@@ -70,6 +80,10 @@ _SIGNATURES = {
                      [_P, _L, _P, _L, _P, _L, _P, _P, _I, _I, _P, _I, _P]),
     "block_bounds": ("hs_block_bounds",
                      [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P]),
+    "banded_scores": ("hs_banded_scores",
+                      [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P,
+                       _P, _I, _P]),
+    "elect": ("hs_elect", [_P, _P, _P, _F, _P, _I, _I, _P]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -132,6 +146,10 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def _check(name: str, tensors: dict, dtypes: dict) -> torch.device:
+    for arg, t in tensors.items():
+        if t.dtype != dtypes[arg]:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, "
+                            f"expected {dtypes[arg]}")
     dev = None
     for arg, t in tensors.items():
         if t.device.type != "cuda":
@@ -141,9 +159,6 @@ def _check(name: str, tensors: dict, dtypes: dict) -> torch.device:
             dev = t.device
         elif t.device != dev:
             raise ValueError(f"{name}: operands on {dev} and {t.device}")
-        if t.dtype != dtypes[arg]:
-            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, "
-                            f"expected {dtypes[arg]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
     return dev
@@ -467,10 +482,117 @@ def block_bounds(db_sorted: torch.Tensor, order: torch.Tensor, n: int,
 
 block_bounds.launches = 0
 
+# --------------------------------------------------------------------------
+# banded_scores
+# --------------------------------------------------------------------------
+
+# the widest band the kernel takes: 2*band+1 diagonal lanes in chunks of
+# at most 8 per thread of a warp (csrc/banded_scores.cu)
+BANDED_MAX_BAND = 127
+# gap penalties and |drop| the kernel takes: every intermediate score then
+# stays within int32, as it does in the plain version
+BANDED_MAX_GAP, BANDED_MAX_DROP = (1 << 20) - 1, 1 << 30
+
+
+def banded_scores(q: torch.Tensor, qlen: torch.Tensor, d: torch.Tensor,
+                  dlen: torch.Tensor, sub21: torch.Tensor, gap_open: int,
+                  gap_ext: int, drop: int, band: int):
+    """Banded affine-gap scores of P window pairs -> (best, bi, bj), each
+    (P,) int32: the best cell's score (floored at 0) and its row and
+    column, as align/gapped_device.py's ``banded_scores_plain`` defines
+    them, bitwise.
+
+    q (P, Lq) and d (P, Ld) int32 residues (AA indices 0..20), qlen and
+    dlen (P,) int32, sub21 the (21, 21) int32 substitution table, all
+    contiguous; gap_open, gap_ext, drop and band as ints
+    (0 <= gap_ext <= gap_open, band <= 127).
+    """
+    if q.device.type == "cpu":
+        from ..align.gapped_device import banded_scores_plain
+        return banded_scores_plain(q, qlen, d, dlen, sub21, gap_open,
+                                   gap_ext, drop, band)
+    go, ge, drop, band = int(gap_open), int(gap_ext), int(drop), int(band)
+    if not 0 <= band <= BANDED_MAX_BAND:
+        raise ValueError(f"banded_scores: band {band} outside [0, "
+                         f"{BANDED_MAX_BAND}]")
+    if not (0 <= ge <= go <= BANDED_MAX_GAP and abs(drop) <= BANDED_MAX_DROP):
+        raise ValueError(f"banded_scores: gap_open {go}, gap_ext {ge}, drop "
+                         f"{drop}: the kernel needs 0 <= gap_ext <= gap_open"
+                         f" <= {BANDED_MAX_GAP} and |drop| <= "
+                         f"{BANDED_MAX_DROP}")
+    ops = {"q": q, "qlen": qlen, "d": d, "dlen": dlen, "sub21": sub21}
+    dev = _check("banded_scores", ops, dict.fromkeys(ops, torch.int32))
+    p = q.shape[0]
+    if q.dim() != 2 or d.dim() != 2 or d.shape[0] != p \
+            or qlen.shape != (p,) or dlen.shape != (p,) \
+            or sub21.shape != (21, 21):
+        raise ValueError(f"banded_scores: shapes q {tuple(q.shape)}, qlen "
+                         f"{tuple(qlen.shape)}, d {tuple(d.shape)}, dlen "
+                         f"{tuple(dlen.shape)}, sub21 {tuple(sub21.shape)}"
+                         " do not match")
+    out = [torch.empty(p, dtype=torch.int32, device=dev) for _ in range(3)]
+    if p:
+        _launch("banded_scores", dev, q.data_ptr(), qlen.data_ptr(),
+                d.data_ptr(), dlen.data_ptr(), q.shape[1], d.shape[1],
+                sub21.data_ptr(), go, ge, drop, band,
+                *(o.data_ptr() for o in out), p)
+        banded_scores.launches += 1
+    return tuple(out)
+
+
+banded_scores.launches = 0
+
+
+# --------------------------------------------------------------------------
+# elect
+# --------------------------------------------------------------------------
+
+# the widest bucket row the kernel takes (one thread per slot)
+ELECT_MAX_B = 1024
+
+
+def elect(d: torch.Tensor, state: torch.Tensor, valid: torch.Tensor,
+          radius: float) -> torch.Tensor:
+    """First-fit leader election of NB bucket rows -> (NB, B) int64 parent
+    slots (-1 where none), as cluster/greedy.py's ``_elect_plain`` defines
+    them, bitwise.
+
+    d (NB, B, B) float32 in-bucket distances (read in place), state
+    (NB, B) uint8 (0 unprocessed, 1 center, other values neither), valid
+    (NB, B) bool; a slot matches where d <= float32(radius).  B <= 1024.
+    """
+    if d.device.type == "cpu":
+        from ..cluster.greedy import _elect_plain
+        return _elect_plain(d, state, valid, radius)
+    if d.dim() != 3 or d.shape[1] != d.shape[2] \
+            or not 0 < d.shape[1] <= ELECT_MAX_B:
+        raise ValueError(f"elect: d is {tuple(d.shape)}, expected (NB, B, "
+                         f"B) with 0 < B <= {ELECT_MAX_B}")
+    dev = _check("elect", {"d": d, "state": state, "valid": valid},
+                 {"d": torch.float32, "state": torch.uint8,
+                  "valid": torch.bool})
+    nb, b, _ = d.shape
+    if state.shape != (nb, b) or valid.shape != (nb, b):
+        raise ValueError(f"elect: shapes d {tuple(d.shape)}, state "
+                         f"{tuple(state.shape)}, valid {tuple(valid.shape)}"
+                         " do not match")
+    parent = torch.empty((nb, b), dtype=torch.int64, device=dev)
+    if nb:
+        _launch("elect", dev, d.data_ptr(), state.data_ptr(),
+                valid.data_ptr(), float(np.float32(radius)),
+                parent.data_ptr(), nb, b)
+        elect.launches += 1
+    return parent
+
+
+elect.launches = 0
+
 KERNELS = {"sq_distance_prune": sq_distance_prune,
            "ptable_verify": ptable_verify,
            "extend_pairs": extend_pairs,
-           "block_bounds": block_bounds}
+           "block_bounds": block_bounds,
+           "banded_scores": banded_scores,
+           "elect": elect}
 
 
 def reset_launches() -> None:

@@ -134,7 +134,9 @@ def test_ladder_equals_jax_on_its_index(jax_bench_index, ladder):
     assert res.record["launches_per_call"] == {"sq_distance_prune": 0,
                                                "ptable_verify": 0,
                                                "extend_pairs": 0,
-                                               "block_bounds": 0}
+                                               "block_bounds": 0,
+                                               "banded_scores": 0,
+                                               "elect": 0}
 
 
 def test_main_prints_one_json_line(capsys):

@@ -204,10 +204,28 @@ def test_cpu_wrappers_take_plain_versions(rng):
     for got, want in zip(ck.block_bounds(rows, order, 60, coords),
                          ck.block_bounds_plain(rows, order, 60, coords)):
         assert torch.equal(got, want)
+    from hsearch_tpu_torch.align import gapped_device, pipeline
+    from hsearch_tpu_torch.cluster import greedy
+    win = [torch.as_tensor(x) for x in (rng.integers(0, 21, (6, 30)),
+                                        rng.integers(0, 31, 6),
+                                        rng.integers(0, 21, (6, 40)),
+                                        rng.integers(0, 41, 6))]
+    win = [x.to(torch.int32) for x in win]
+    sub = torch.as_tensor(pipeline._sub21())
+    for got, want in zip(ck.banded_scores(*win, sub, 11, 1, 27, 8),
+                         gapped_device.banded_scores_plain(*win, sub, 11, 1,
+                                                           27, 8)):
+        assert torch.equal(got, want)
+    d = torch.rand((5, 16, 16)) * 50
+    state = torch.as_tensor(rng.integers(0, 3, (5, 16)).astype(np.uint8))
+    valid = torch.rand((5, 16)) > 0.2
+    assert torch.equal(ck.elect(d, state, valid, 25.0),
+                       greedy._elect_plain(d, state, valid, 25.0))
     # the counts record kernel launches only
     assert ck.launch_counts() == {"sq_distance_prune": 0,
                                   "ptable_verify": 0, "extend_pairs": 0,
-                                  "block_bounds": 0}
+                                  "block_bounds": 0, "banded_scores": 0,
+                                  "elect": 0}
 
 
 def test_non_cpu_tensors_never_fall_back():
