@@ -4,7 +4,7 @@ db shards, the protein aligner and pcluster, the sharded, multi-process and
 training paths, distributed k-mer and protein clustering, CLI.
 
     python3 chip_smoke.py [--stream-n-log2 N] [--approx-n-log2 N]
-                          [--trace-out PATH]
+                          [--trace-out PATH] [--reference-sources DIR]
 
 Needs one CUDA device (exits non-zero without one), ``nvcc`` for the
 kernels and ``g++`` (or ``$CXX``) with OpenMP for the host library, which
@@ -20,10 +20,17 @@ Phases, each of which fails the run on error:
      main path's shapes (real index data), at ragged small shapes and,
      for prune, past one grid's 65,535 block tiles (C=64, D=8,
      B=8,388,608: two launches); block_bounds on phase 3's index and on
-     ragged blocks with padding and invalid rows (bs 32, 8 and 33) under
-     ops/kernel_checks.bounds_agreement's tolerance; extend_pairs on
+     ragged blocks with padding and invalid rows (bs 32, 8 and 33, L 300
+     (more columns than threads) and bs 4,096 (one tile staged at a
+     time)) under ops/kernel_checks.bounds_agreement's tolerance;
+     extend_pairs on
      ragged mixed lanes (8,192 of 120-residue and 8,197 of 600-residue
-     proteins) bitwise;
+     proteins) and on kernel_checks.extend_tie_inputs' lanes (running
+     maxima tied across chunk boundaries) bitwise; each kernel's
+     registers and spill bytes as ptxas reported them at the build
+     (-Xptxas -v), and the warps one SM holds of the extension kernel
+     (8,192 lanes) and of the bounds kernel (the build's geometry), from
+     cudaOccupancyMaxActiveBlocksPerMultiprocessor;
      prune's keys within the stated tolerance and flip rule, its group
      minima and alive counts exactly those of its own keys; verify's
      d2m and n_hits bitwise, at the IVF search's block size 32 and at the
@@ -167,6 +174,13 @@ Phases, each of which fails the run on error:
      hsearch_tpu_torch/examples once at a small size (EXAMPLE_RUNS, 4 at
      a time), each of which must exit 0; their wall seconds.
 
+With ``--reference-sources DIR`` (an earlier version of
+``block_bounds.cu`` and ``extend_pairs.cu`` in DIR, with the C entries
+that ``load_reference`` names), phase 2 on phase 3's index, phase 8 on
+its first segment and phase 9 on each corpus's first batch also hold
+those kernels bitwise against the ones here and time both, in the order
+reference, here, here, reference; the default run leaves this out.
+
 Output: free-form progress lines; ``kernels``, ``host_kernels``,
 ``main_path``, ``approx_select``, ``lsh``,
 ``cluster``, ``stream``, ``pcluster``, ``sharded``, ``distributed`` and
@@ -280,21 +294,37 @@ EXAMPLE_RUNS = (
 EXAMPLE_WORKERS, EXAMPLE_TIMEOUT_S = 4, 300
 
 
+# the sleep kernel that queued timings wait behind: about 20 ms at the
+# H100's 1.98 GHz boost clock, longer than the host takes to queue the
+# timed calls of the extension and bounds kernels
+QUEUE_SLEEP_CYCLES = 40_000_000
+
+# --reference-sources: the loaded libraries of another version of the
+# bounds and extension kernels (load_reference), empty by default
+REFERENCE: dict = {}
+
+
 def _sync(dev):
     import torch
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
 
-def _time_ms(fn, dev, reps=10):
+def _time_ms(fn, dev, reps=10, queued=False):
     """Mean time of one call: CUDA events around ``reps`` calls on the card,
-    the host clock on the CPU (rehearsals only)."""
+    the host clock on the CPU (rehearsals only).  With ``queued`` the
+    calls wait behind a sleep kernel of QUEUE_SLEEP_CYCLES, so the host
+    has queued them before the first runs and the events time the device
+    work alone; without it a call the host launches more slowly than the
+    card runs it is timed at the host's rate."""
     import torch
     fn()
     _sync(dev)
     if dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
         start.record()
         for _ in range(reps):
             fn()
@@ -365,6 +395,150 @@ def bounds_bound(b, bs, l):
     nbytes = b * (bs * l + 4.0 * bs + 4.0 * 8 * l + 4.0) + 4.0 * 20 * 8
     flops = b * (2.0 * 20 * 8 * l + 3.0 * 8 * 20 * l + 1.0 * bs * l)
     return _bound_ms(flops, nbytes)
+
+
+def kernel_resources(dev, blocks):
+    """Each kernel's registers and spill bytes (stores + loads) as ptxas
+    reported them when it was built (-Xptxas -v; the largest over its entry
+    functions, each entry listed), and the CUDA blocks and warps one SM
+    holds of the extension kernel at 8,192 lanes and of the bounds kernel
+    at ``blocks`` blocks of 32 rows of L (``resident``).  Empty off the
+    card (no nvcc)."""
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+    if dev.type != "cuda":
+        return {}
+    out = {}
+    for name in ck.SOURCES:
+        entries = ck.ptxas_report(name)
+        out[name] = {
+            "registers": max((e.get("registers", 0) for e in entries),
+                             default=None),
+            "spill_bytes": max((e.get("spill_store_bytes", 0)
+                                + e.get("spill_load_bytes", 0)
+                                for e in entries), default=None),
+            "entries": entries}
+    out["extend_pairs"]["resident"] = ck.resident_warps(
+        "extend_pairs", ck.extend_launch_geometry(8192), dev)
+    geo = ck.bounds_geometry_on(dev, blocks, 32, L)
+    out["block_bounds"].update(
+        geometry=geo, resident=ck.resident_warps("block_bounds", geo, dev))
+    return out
+
+
+def load_reference(src_dir):
+    """``--reference-sources``: DIR's block_bounds.cu and extend_pairs.cu,
+    an earlier version of the two kernels whose C entries are
+    hs_block_bounds(db, order, coords, n, cent, rad, B, bs, L, stream) and
+    hs_extend_pairs(qseq, lq, dseq, ld, six, ld_in, sub, grp, drop,
+    seed_len, out, B, stream), built by nvcc with the package's flags
+    (both started together) into a temporary directory outside the
+    checkout, and loaded: {name: (ctypes library, its entry)}."""
+    import ctypes
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+    out_dir = tempfile.mkdtemp(prefix="hsearch_reference_")
+    P, I, Ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    entries = {"block_bounds": ("hs_block_bounds",
+                                [P, P, P, I, P, P, I, I, I, P]),
+               "extend_pairs": ("hs_extend_pairs",
+                                [P, Ll, P, Ll, P, Ll, P, P, I, I, P, I, P])}
+    procs = {}
+    for name in entries:
+        lib = os.path.join(out_dir, f"{name}.so")
+        procs[name] = (lib, subprocess.Popen(
+            [ck._nvcc(), *ck.NVCC_FLAGS, "-o", lib,
+             os.path.join(src_dir, ck.SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    loaded = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"reference {name} failed to build:\n{log}")
+        fn = getattr(ctypes.CDLL(lib), entries[name][0])
+        fn.argtypes, fn.restype = entries[name][1], ctypes.c_int
+        loaded[name] = fn
+    print(f"reference kernels built from {src_dir}", flush=True)
+    return loaded
+
+
+def _stream_ptr(dev):
+    import torch
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _ab_times(ref, here, dev, reps):
+    """Both callables timed in the order reference, here, here, reference,
+    by CUDA events at the host's launch rate (``ms``) and queued behind a
+    sleep kernel (``device_ms``)."""
+    out = {}
+    for key, queued in (("ms", False), ("device_ms", True)):
+        t = [_time_ms(f, dev, reps=reps, queued=queued)
+             for f in (ref, here, here, ref)]
+        out[key] = {"reference": [t[0], t[3]], "here": [t[1], t[2]]}
+    return out
+
+
+def reference_bounds(dev, db_sorted, order, n):
+    """The reference bounds kernel (load_reference) against
+    cuda_kernels.block_bounds on the same inputs: bitwise in centroids
+    and radii, and both times."""
+    import torch
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+    from hsearch_tpu_torch.ops import distance
+    coords = distance.const("coords", dev)
+    b, bs = order.shape
+    l = db_sorted.shape[1] // bs
+
+    def ref():
+        cent = torch.empty((b, 8 * l), dtype=torch.float32, device=dev)
+        rad = torch.empty(b, dtype=torch.float32, device=dev)
+        rc = REFERENCE["block_bounds"](
+            db_sorted.data_ptr(), order.data_ptr(), coords.data_ptr(), n,
+            cent.data_ptr(), rad.data_ptr(), b, bs, l, _stream_ptr(dev))
+        if rc:
+            raise RuntimeError(f"reference block_bounds: CUDA error {rc}")
+        return cent, rad
+
+    def here():
+        return ck.block_bounds(db_sorted, order, n, coords)
+
+    (c0, r0), (c1, r1) = ref(), here()
+    bitwise = (torch.equal(c0.view(torch.int32), c1.view(torch.int32))
+               and torch.equal(r0.view(torch.int32), r1.view(torch.int32)))
+    if not bitwise:
+        raise AssertionError(f"block_bounds differs from the reference "
+                             f"kernel at B={b}, bs={bs}, L={l}")
+    return {"shape": [b, bs, l], "bitwise": bitwise,
+            **_ab_times(ref, here, dev, 50)}
+
+
+def reference_extension(dev, seq, six, drop):
+    """The reference extension kernel (load_reference) against
+    cuda_kernels.extend_pairs on the same lanes: bitwise in all 8
+    fields, and both times."""
+    import torch
+    from hsearch_tpu_torch.align import seed_index
+    from hsearch_tpu_torch.ops import cuda_kernels as ck
+    sub, grp = ck._extend_tables(dev)
+    b = six.shape[1]
+
+    def ref():
+        out = torch.empty((8, b), dtype=torch.int32, device=dev)
+        rc = REFERENCE["extend_pairs"](
+            seq.data_ptr(), seq.numel(), seq.data_ptr(), seq.numel(),
+            six.data_ptr(), six.stride(0), sub.data_ptr(), grp.data_ptr(),
+            drop, seed_index.SEED_LEN, out.data_ptr(), b, _stream_ptr(dev))
+        if rc:
+            raise RuntimeError(f"reference extend_pairs: CUDA error {rc}")
+        return out
+
+    def here():
+        return ck.extend_pairs(seq, seq, six, drop, seed_index.SEED_LEN)
+
+    bitwise = torch.equal(ref(), here())
+    if not bitwise:
+        raise AssertionError(f"extend_pairs differs from the reference "
+                             f"kernel on {b} lanes")
+    return {"lanes": b, "bitwise": bitwise, **_ab_times(ref, here, dev, 20)}
 
 
 def extend_bound(six, out):
@@ -504,6 +678,17 @@ def lsh_configs():
                 center_block=32, max_hits=512), 2048))
 
 
+def _resources_of(resources, name):
+    """The kernel line's resource keys of ``name`` from kernel_resources:
+    registers, spill bytes and, where measured, resident warps per SM."""
+    r = resources.get(name, {})
+    out = {"registers": r.get("registers"), "spill_bytes": r.get(
+        "spill_bytes")}
+    if "resident" in r:
+        out["warps_per_sm"] = r["resident"]["warps_per_sm"]
+    return out
+
+
 def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
         exact_n_log2=EXACT_N_LOG2, centroid_n_log2=CENTROID_N_LOG2,
         cli=True, stream_n_log2=STREAM_N_LOG2, stream_c=STREAM_C,
@@ -626,19 +811,30 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
     bounds_small = [check_bounds(ck, *bounds_small_inputs(rng, dev, b_, bs_,
                                                            l_))
                     for b_, bs_, l_ in ((3001, 32, 25), (777, 8, 10),
-                                        (500, 33, 25))]
+                                        (500, 33, 25), (500, 32, 300),
+                                        (40, 4096, 25))]
+    bounds_reference = (reference_bounds(dev, idx2.db_sorted, idx2.order,
+                                         idx2.n_points)
+                        if REFERENCE else None)
     extend_small = []
-    for n_prot, plen, lanes in ((40, 120, 8192), (20, 600, 8197)):
-        eseq, esix = (torch.as_tensor(x, device=dev) for x in
-                      kernel_checks.extend_inputs(rng, n_prot, plen, lanes))
+    for n_prot, plen, lanes in ((40, 120, 8192), (20, 600, 8197),
+                                (None, None, None)):
+        eseq, esix = (torch.as_tensor(x, device=dev) for x in (
+            kernel_checks.extend_inputs(rng, n_prot, plen, lanes) if plen
+            else kernel_checks.extend_tie_inputs(rng)))
         extend_small.append(kernel_checks.extend_agreement(
             ck.extend_pairs(eseq, eseq, esix, 9),
             ck.extend_pairs_plain(eseq, eseq, esix, 9)))
     print(f"phase2 bounds at the build shape B={idx2.num_blocks}: "
           f"{bounds_build}", flush=True)
     print(f"phase2 bounds small: {bounds_small}", flush=True)
-    print(f"phase2 extend small (120 and 600 residues): {extend_small}",
-          flush=True)
+    if bounds_reference is not None:
+        print(f"phase2 bounds vs the reference kernel on phase 3's index: "
+              f"{bounds_reference}", flush=True)
+    print(f"phase2 extend small (120 and 600 residues, ties across "
+          f"chunks): {extend_small}", flush=True)
+    resources = kernel_resources(dev, idx2.num_blocks)
+    print(f"phase2 kernel resources: {json.dumps(resources)}", flush=True)
     for name, res in (("bounds build shape", bounds_build),
                       *(("bounds small", r_) for r_ in bounds_small),
                       *(("extend small", r_) for r_ in extend_small),
@@ -866,6 +1062,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
          "bound_f32_simt_ms": prune_simt,
          "library_ms": cdist_ms,
          "library_call": "torch.cdist (the distance part alone)",
+         **_resources_of(resources, "sq_distance_prune"),
          "shape": [cq, bq, dq],
          "past_grid_limit": prune_past,
          "stream_segment": prune_seg},
@@ -890,6 +1087,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
          "distinct_blocks": n_distinct,
          "replaced_gather_ms": gather_ms,
          "library_ms": None,
+         **_resources_of(resources, "ptable_verify"),
          "shape": [cq, kbv, bsv, L],
          "lsh_bs1": {"shape": lsh_shape, "ms": lsh_ms,
                      "plain_ms": lsh_plain_ms, "bound_ms": lsh_bnd,
@@ -907,6 +1105,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
              pcluster["extend_chunked"])),
          "bitwise": all(r_["bitwise"] for r_ in extend_small),
          "ms": pcluster["extend_windowed"]["ms_per_call"],
+         "device_ms": pcluster["extend_windowed"]["device_ms_per_call"],
          "plain_ms": pcluster["extend_windowed"]["plain_ms_per_call"],
          "bound_ms": pcluster["extend_windowed"]["bound_ms"],
          "bound_by": pcluster["extend_windowed"]["bound_by"],
@@ -914,6 +1113,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                         "extents at 16.7 TOP/s; seeds, results and the "
                         "residues of the extents read or written once",
          "library_ms": None,
+         **_resources_of(resources, "extend_pairs"),
          "shape": ["8,192 lanes", "120-residue proteins"],
          "corpus_120": pcluster["extend_windowed"],
          "corpus_600": pcluster["extend_chunked"]},
@@ -928,11 +1128,13 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
              bounds_build, *bounds_small, bounds_seg)),
          "tolerance": "centroid 1e-6 (|plain| + max|coord|), radius 1e-6 "
                       "(plain + sqrt(8L) max|coord|), both ways",
-         "ms": bounds_seg["ms"], "plain_ms": bounds_seg["plain_ms"],
+         "ms": bounds_seg["ms"], "device_ms": bounds_seg["device_ms"],
+         "plain_ms": bounds_seg["plain_ms"],
          "bound_ms": bounds_seg["bound_ms"],
          "bound_by": bounds_seg["bound_by"], "library_ms": None,
+         **_resources_of(resources, "block_bounds"),
          "shape": bounds_seg["shape"], "stream_segment": bounds_seg,
-         "build_shape": bounds_build},
+         "build_shape": bounds_build, "reference": bounds_reference},
         {"name": "banded_scores", "route": "cuda",
          "source": "hsearch_tpu_torch/csrc/banded_scores.cu",
          "replaces": "hsearch_tpu/align/gapped_device.py:39 (lax.scan :114)",
@@ -949,6 +1151,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                         "each scanned row at 16.7 TOP/s; windows, lengths, "
                         "table and results moved once",
          "library_ms": None,
+         **_resources_of(resources, "banded_scores"),
          "shape": [pcluster["gapped"]["windows"],
                    *pcluster["gapped"]["window_shape"], "band 32"],
          "rows_scanned": pcluster["gapped"]["banded_rows_scanned"]},
@@ -968,6 +1171,7 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                         "state, valid and parents moved once; a test and a "
                         "minimum per slot and position at 16.7 TOP/s",
          "library_ms": None,
+         **_resources_of(resources, "elect"),
          "shape": [cluster["elect_kernel"][-1]["rows"],
                    cluster["elect_kernel"][-1]["b"]],
          "slabs": cluster["elect_kernel"]},
@@ -1667,7 +1871,12 @@ def run_stream(dev, n_log2, n_centers, cli, trace_out, lloyd):
     bargs = (seg0.db_sorted, seg0.order, seg0.n_points, coords)
     bounds_bnd, bounds_by = bounds_bound(bq, 32, L)
     bounds_seg = {"shape": [bq, 32, L], **bounds_res,
-                  "ms": _time_ms(lambda: ck.block_bounds(*bargs), dev),
+                  "ms": _time_ms(lambda: ck.block_bounds(*bargs), dev,
+                                 reps=50),
+                  "device_ms": _time_ms(lambda: ck.block_bounds(*bargs),
+                                        dev, reps=50, queued=True),
+                  "reference": reference_bounds(dev, *bargs[:3])
+                  if REFERENCE else None,
                   "plain_ms": _time_ms(lambda: ck.block_bounds_plain(
                       *bargs), dev, reps=3),
                   "bound_ms": bounds_bnd, "bound_by": bounds_by,
@@ -2031,6 +2240,9 @@ def compare_extension(searcher, dev):
            "max_abs_err": 0.0,
            "ms_per_call": _time_ms(lambda: searcher.extend_batch(first),
                                    dev, reps=20),
+           "device_ms_per_call": _time_ms(
+               lambda: searcher.extend_batch(first), dev, reps=20,
+               queued=True),
            "plain_ms_per_call": _time_ms(lambda: ck.extend_pairs_plain(
                sdev, sdev, first, drop, seed_index.SEED_LEN), dev, reps=3),
            "windowed_ms_per_call": _time_ms(lambda: windowed(sdev, first),
@@ -2038,7 +2250,9 @@ def compare_extension(searcher, dev):
            if searcher.windowed else None,
            "lanes_per_call": int(first.shape[1]),
            "cpu_ms_per_call": 1e3 * float(np.mean(cpu_s)),
-           "bound_ms": bound, "bound_by": by}
+           "bound_ms": bound, "bound_by": by,
+           "reference": reference_extension(dev, sdev, first, drop)
+           if REFERENCE else None}
     return rec
 
 
@@ -3086,6 +3300,11 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-out", default=None,
                     help="also write phase 8's profiler trace (Chrome "
                          "JSON) to this path")
+    ap.add_argument("--reference-sources", default=None, metavar="DIR",
+                    help="hold the bounds and extension kernels against "
+                         "DIR's block_bounds.cu and extend_pairs.cu (an "
+                         "earlier version; see load_reference) bitwise "
+                         "and in time")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     import torch
@@ -3094,6 +3313,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     import hsearch_tpu_torch  # noqa: F401  (fails outside a checkout)
+    if args.reference_sources:
+        REFERENCE.update(load_reference(args.reference_sources))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

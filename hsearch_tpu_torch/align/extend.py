@@ -17,9 +17,9 @@ JAX package:
     version of the ``extend_pairs`` kernel.
 
 On the card the pipeline runs neither: ``ops/cuda_kernels.extend_pairs``
-(csrc/extend_pairs.cu) extends each lane in one thread, the chunked
-form's algorithm step for step, for every protein length and with no
-host synchronisation.
+(csrc/extend_pairs.cu) extends each lane with a warp, 32 residues a
+step, the chunked form's algorithm at that chunk width, for every
+protein length and with no host synchronisation.
 
 Semantics (parity with the reference):
   * the seed score adds full BLOSUM62 over the 10-residue local seed

@@ -11,13 +11,16 @@ package runs under ``jax.jit``.
     block-sorted database by block id, with the radius test and the hit
     count fused in.
   * ``extend_pairs`` (csrc/extend_pairs.cu): the aligner's ungapped
-    seed-extend, one thread per seed pair, bitwise the chunked form of
-    align/extend.py (the JAX package's ``lax.while_loop`` phases) for any
-    protein length, with no host round-trip.
+    seed-extend, a warp per seed pair extending 32 residues per step
+    (shuffle scans, ballots), bitwise the chunked form
+    of align/extend.py (the JAX package's ``lax.while_loop`` phases) for
+    any protein length, with no host round-trip.
   * ``block_bounds`` (csrc/block_bounds.cu): each index block's embedded
-    centroid and covering radius in one pass over the block-sorted rows
-    (the JAX package's jitted bounds ``lax.scan`` of the IVF build and of
-    the segmented engine's upload).
+    centroid and covering radius in one pass over the block-sorted rows,
+    tiles of consecutive blocks double-buffered into shared memory by
+    ``cp.async`` (the JAX package's jitted bounds ``lax.scan`` of the IVF
+    build and of the segmented engine's upload); the shared-memory layout
+    is computed here (``bounds_layout``) and passed in.
   * ``banded_scores`` (csrc/banded_scores.cu): the ``--gapped``
     refinement's banded affine-gap row scan, one warp per window pair,
     bitwise align/gapped_device.py's ``banded_scores_plain`` (the JAX
@@ -30,8 +33,12 @@ package runs under ``jax.jit``.
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, into ``_build/`` beside
 the package; the file name carries a hash of the source and flags, so an
-edited source rebuilds.  The libraries are loaded with ``ctypes`` and
-launch on PyTorch's current stream.
+edited source rebuilds, and ptxas's report (``-Xptxas -v``: registers,
+spills) is kept beside each library (``ptxas_report``).  The libraries
+are loaded with ``ctypes`` and launch on PyTorch's current stream; the
+launch geometry of the extension and bounds kernels is computed here
+(``extend_launch_geometry``, ``bounds_launch_geometry``) and checked by
+their C entries.
 
 Each wrapper takes its plain PyTorch version when its tensors lie on the
 CPU, and launches its kernel (or raises) when they lie on a CUDA device.
@@ -45,6 +52,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -60,7 +68,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = {"sq_distance_prune": "prune.cu",
            "ptable_verify": "ptable_verify.cu",
            "extend_pairs": "extend_pairs.cu",
@@ -77,14 +85,22 @@ _SIGNATURES = {
                       [_P, _P, _P, _P, _P, _F, _I, _P, _P, _I, _I, _I, _I,
                        _P]),
     "extend_pairs": ("hs_extend_pairs",
-                     [_P, _L, _P, _L, _P, _L, _P, _P, _I, _I, _P, _I, _P]),
+                     [_P, _L, _P, _L, _P, _L, _P, _P, _I, _I, _P, _I, _I,
+                      _I, _P]),
     "block_bounds": ("hs_block_bounds",
-                     [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P]),
+                     [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                      _P]),
     "banded_scores": ("hs_banded_scores",
                       [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P,
                        _P, _I, _P]),
     "elect": ("hs_elect", [_P, _P, _P, _F, _P, _I, _I, _P]),
 }
+
+# resident CUDA blocks per SM of a launch geometry (cudaOccupancy... in
+# the kernel's C entry): (symbol, the geometry keys it takes)
+_OCCUPANCY = {"extend_pairs": ("hs_extend_pairs_occupancy", ("threads",)),
+              "block_bounds": ("hs_block_bounds_occupancy",
+                               ("threads", "smem"))}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -107,6 +123,10 @@ def _lib_path(name: str) -> Path:
     return _BUILD / f"{Path(SOURCES[name]).stem}-{digest}.so"
 
 
+def _log_path(name: str) -> Path:
+    return _lib_path(name).with_suffix(".ptxas.txt")
+
+
 def build(names=tuple(SOURCES)) -> dict[str, Path]:
     """Compile the named kernels (all nvcc processes started together) and
     return their library paths; libraries already built are reused."""
@@ -126,6 +146,9 @@ def build(names=tuple(SOURCES)) -> dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{SOURCES[n]}:\n{log}")
         else:
+            log_tmp = tmp.with_suffix(".txt")
+            log_tmp.write_text(log)
+            os.replace(log_tmp, _log_path(n))
             os.replace(tmp, todo[n])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -141,8 +164,79 @@ def _lib(name: str) -> ctypes.CDLL:
         fn = getattr(lib, sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        if name in _OCCUPANCY:
+            sym_o, keys = _OCCUPANCY[name]
+            occ = getattr(lib, sym_o)
+            occ.argtypes = [_I] * len(keys) + [ctypes.POINTER(ctypes.c_int)]
+            occ.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Each entry function of the named kernel's library as ptxas
+    reported it when the library was built (``-Xptxas -v``): its (mangled)
+    name, registers per thread, stack frame and spill bytes.  Builds the
+    library if needed."""
+    build((name,))
+    out: list[dict] = []
+    for line in _log_path(name).read_text().splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            out.append({"function": m.group(1)})
+            continue
+        m = _PTXAS_FRAME.search(line)
+        if out and m and "stack_bytes" not in out[-1]:
+            out[-1].update(stack_bytes=int(m.group(1)),
+                           spill_store_bytes=int(m.group(2)),
+                           spill_load_bytes=int(m.group(3)))
+        m = _PTXAS_REGS.search(line)
+        if out and m and "registers" not in out[-1]:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
+def resident_warps(name: str, geometry: dict, dev: torch.device) -> dict:
+    """CUDA blocks and warps of the named kernel that one SM of ``dev``
+    holds at once at ``geometry`` (a launch geometry of
+    ``extend_launch_geometry`` or ``bounds_launch_geometry``), from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor in its C entry."""
+    sym, keys = _OCCUPANCY[name]
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = getattr(_lib(name), sym)(*(int(geometry[k]) for k in keys),
+                                      ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"{name}: occupancy query failed with CUDA error "
+                           f"{rc}")
+    return {"blocks_per_sm": blocks.value,
+            "warps_per_sm": blocks.value * int(geometry["threads"]) // 32}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _bounds_per_sm(dev: torch.device, threads: int, smem: int) -> int:
+    return resident_warps("block_bounds", {"threads": threads, "smem": smem},
+                          dev)["blocks_per_sm"]
+
+
+def bounds_geometry_on(dev: torch.device, b: int, bs: int, l: int) -> dict:
+    """``bounds_launch_geometry`` on ``dev``: its SMs, and the blocks per
+    SM the card holds at the tile's shared-memory size."""
+    tile = bounds_tile(bs, l)
+    return bounds_launch_geometry(
+        b, bs, l, _sm_count(dev),
+        _bounds_per_sm(dev, BOUNDS_THREADS, tile["smem"]))
 
 
 def _check(name: str, tensors: dict, dtypes: dict) -> torch.device:
@@ -333,6 +427,28 @@ ptable_verify.launches = 0
 # extend_pairs
 # --------------------------------------------------------------------------
 
+# threads per lane (a warp: the chunk the kernel extends per step) and
+# threads per CUDA block (csrc/extend_pairs.cu G, THREADS)
+EXTEND_GROUP = 32
+EXTEND_THREADS = 256
+MAX_GRID_X = (1 << 31) - 1
+MAX_SHARED = 232_448
+
+
+def extend_launch_geometry(b: int) -> dict:
+    """The extension kernel's launch for ``b`` lanes: EXTEND_GROUP threads
+    per lane, EXTEND_THREADS threads per CUDA block, ``grid`` blocks, and
+    the static shared bytes of its two tables (the 21x21 scores and the
+    21 murphy10 groups, int32)."""
+    lanes = EXTEND_THREADS // EXTEND_GROUP
+    grid = max(1, -(-int(b) // lanes))
+    if grid > MAX_GRID_X:
+        raise ValueError(f"extend_pairs: {b} lanes need {grid} blocks, past "
+                         f"the grid's {MAX_GRID_X}")
+    return {"threads": EXTEND_THREADS, "lanes_per_block": lanes,
+            "grid": grid, "smem": 4 * (21 * 21 + 21)}
+
+
 @functools.lru_cache(maxsize=None)
 def _extend_tables(device: torch.device):
     """The flattened 21x21 substitution table and the 21-entry murphy10
@@ -382,10 +498,12 @@ def extend_pairs(qseq: torch.Tensor, dseq: torch.Tensor, six: torch.Tensor,
                       device=dev)
     if b:
         sub, grp = _extend_tables(dev)
+        geo = extend_launch_geometry(b)
         _launch("extend_pairs", dev, qseq.data_ptr(), qseq.numel(),
                 dseq.data_ptr(), dseq.numel(), six.data_ptr(),
                 six.stride(0), sub.data_ptr(), grp.data_ptr(), int(drop),
-                int(seed_len), out.data_ptr(), b)
+                int(seed_len), out.data_ptr(), b, geo["threads"],
+                geo["grid"])
         extend_pairs.launches += 1
     return out
 
@@ -396,6 +514,92 @@ extend_pairs.launches = 0
 # --------------------------------------------------------------------------
 # block_bounds
 # --------------------------------------------------------------------------
+
+# threads per CUDA block of the bounds kernel, and the names of the ten
+# ints of its shared-memory layout as its C entry takes them
+# (csrc/block_bounds.cu Layout)
+BOUNDS_THREADS = 256
+BOUNDS_LAYOUT = ("vmask", "rsum", "tab", "cnt", "ncp", "stage0", "rows_cap",
+                 "stage_bytes", "stages", "smem")
+
+
+def _r16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def bounds_layout(tile: int, bs: int, l: int, stages: int,
+                  threads: int = BOUNDS_THREADS) -> dict:
+    """Shared bytes of one bounds block, by region (csrc/block_bounds.cu
+    reads them from here): the (20, 8) coordinate table; ``vmask``, the
+    valid-row masks; ``rsum``, a row-sum maximum per thread; ``tab``, the
+    (column, 21) table; ``cnt``, each thread's 20 counts with row stride
+    ``ncp``, in the table's bytes where a tile's columns fit in one round
+    of threads, else after it; ``stages`` staged tiles from ``stage0``,
+    each ``stage_bytes``: the 16-byte cover of its rows' span
+    (``rows_cap``), then, double-buffered, of its order entries'; and the
+    total, ``smem``."""
+    cols = tile * l
+    off = 4 * 20 * 8
+    lay = {"vmask": off}
+    off += _r16(4 * tile * (-(-bs // 32)))
+    lay["rsum"] = off
+    off += _r16(4 * threads)
+    lay["tab"] = off
+    if cols <= threads:
+        ncp = -(-cols // 32) * 32
+        lay["cnt"] = off
+        off += _r16(4 * max(20 * ncp, 21 * cols))
+    else:
+        ncp = threads
+        off += _r16(4 * 21 * cols)
+        lay["cnt"] = off
+        off += _r16(4 * 20 * ncp)
+    lay["ncp"] = ncp
+    lay["stage0"] = off
+    lay["rows_cap"] = _r16(tile * bs * l + 30)
+    lay["stage_bytes"] = lay["rows_cap"] + (_r16(4 * tile * bs + 30)
+                                            if stages == 2 else 0)
+    lay["stages"] = stages
+    lay["smem"] = off + stages * lay["stage_bytes"]
+    return lay
+
+
+def bounds_tile(bs: int, l: int) -> dict:
+    """The bounds kernel's tile for blocks of ``bs`` rows of length ``l``:
+    as many consecutive blocks as give each thread at most one column and
+    one row (tile * L <= threads and tile * bs <= threads; one block where
+    a block alone has more), double-buffered, fewer where two staged tiles
+    would not fit MAX_SHARED, and one tile staged at a time where even one
+    block's two would not; with its ``bounds_layout``.  Raises ValueError
+    where one block's rows do not fit."""
+    threads = BOUNDS_THREADS
+    if bs < 1 or l < 1:
+        raise ValueError(f"block_bounds: bs {bs}, L {l}: both must be >= 1")
+    tile = max(1, threads // max(bs, l))
+    while tile > 1 and bounds_layout(tile, bs, l, 2)["smem"] > MAX_SHARED:
+        tile -= 1
+    for stages in (2, 1):
+        lay = bounds_layout(tile, bs, l, stages)
+        if lay["smem"] <= MAX_SHARED:
+            return {"tile": tile, "threads": threads, **lay}
+    raise ValueError(f"block_bounds: a block of {bs} rows of {l} needs "
+                     f"{lay['smem']} shared bytes, past {MAX_SHARED}")
+
+
+def bounds_launch_geometry(b: int, bs: int, l: int, sms: int,
+                           per_sm: int) -> dict:
+    """The bounds kernel's launch for B = ``b`` blocks of ``bs`` rows of
+    length ``l`` on a card of ``sms`` SMs that holds ``per_sm`` of its
+    CUDA blocks each: ``bounds_tile``'s tile and layout, ``tiles`` =
+    ceil(b / tile), and a persistent ``grid`` of at most the blocks the
+    SMs hold at once, each walking tiles g, g + grid, ...."""
+    geo = bounds_tile(bs, l)
+    tiles = -(-int(b) // geo["tile"])
+    grid = max(1, min(tiles, int(sms) * max(1, int(per_sm))))
+    if grid > MAX_GRID_X:
+        raise ValueError(f"block_bounds: grid {grid} past {MAX_GRID_X}")
+    return {**geo, "tiles": tiles, "grid": grid}
+
 
 def _bounds_formula(db_c: torch.Tensor, valid: torch.Tensor,
                     coords: torch.Tensor):
@@ -473,9 +677,12 @@ def block_bounds(db_sorted: torch.Tensor, order: torch.Tensor, n: int,
                        device=dev)
     rad = torch.empty(b, dtype=torch.float32, device=dev)
     if b:
+        geo = bounds_geometry_on(dev, b, bs, l)
         _launch("block_bounds", dev, db_sorted.data_ptr(), order.data_ptr(),
                 coords.data_ptr(), n, cent.data_ptr(), rad.data_ptr(), b, bs,
-                l)
+                l, geo["tile"], geo["threads"], geo["grid"],
+                (ctypes.c_int * len(BOUNDS_LAYOUT))(
+                    *(geo[k] for k in BOUNDS_LAYOUT)))
         block_bounds.launches += 1
     return cent, rad
 

@@ -95,6 +95,54 @@ def verify_inputs(rng: np.random.Generator, c: int, kb: int, bs: int,
     return ptab, db_sorted, order, blk_ids, neg, 0.45 * l, n
 
 
+# residue indices (alphabet ARNDCQEGHILKMFPSTWYV) of extend_tie_inputs:
+# BLOSUM62 (A, S) = +1, (A, R) = -1, (W, W) = +11, (W, P) = -4; A, S and
+# R lie in three murphy10 groups, so such a pair ends greedy extension
+_A, _R, _P, _S, _W = 0, 1, 14, 15, 17
+
+
+def extend_tie_inputs(rng: np.random.Generator, b: int = 256):
+    """Seed pairs (seq, six) whose x-drop scans tie their running maximum
+    across chunk boundaries, as numpy int32.  Lane k owns a query and a
+    subject protein of one length, each [backward run reversed, 10
+    residues of seed, forward run]: a run of m pairs alternating
+    (A, S) = +1 and (A, R) = -1 (m from 3 to 80) returns to its maximum
+    every other residue, so ties fall on both sides of the 8-, 16- and
+    32-residue chunk boundaries; half the runs hold a (W, W) = +11 pair at
+    a random place (a new maximum after ties); half end in 5 pairs
+    (W, P) = -4 (the drop stops the scan at drop 9), the rest at the
+    protein's end (the past-bound score stops it).  Seeds are 10 W, or,
+    in every eighth lane, unknown residues (gate score -50, below
+    MINSCORE: no x-drop)."""
+
+    def run():
+        m = int(rng.integers(3, 81))
+        q = np.full(m, _A)
+        d = np.where(np.arange(m) % 2 == 0, _S, _R)
+        if rng.random() < 0.5:
+            k = int(rng.integers(1, m))
+            q[k] = d[k] = _W
+        if rng.random() < 0.5:
+            q = np.concatenate([q, np.full(5, _W)])
+            d = np.concatenate([d, np.full(5, _P)])
+        return q, d
+
+    seq, six, pos = [], [], 0
+    for k in range(b):
+        (fq, fd), (bq, bd) = run(), run()
+        seed = rng.choice([20, 21, 25], 10) if k % 8 == 7 \
+            else np.full(10, _W)
+        qp = np.concatenate([bq[::-1], seed, fq])
+        dp = np.concatenate([bd[::-1], seed, fd])
+        n = len(qp)
+        seq += [qp, dp]
+        six.append([pos + len(bq), pos + n + len(bd), pos, pos + n, pos + n,
+                    pos + 2 * n])
+        pos += 2 * n
+    return (np.concatenate(seq).astype(np.int32),
+            np.ascontiguousarray(np.array(six, np.int64).T, np.int32))
+
+
 def extend_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
     """Verdict on extend_pairs's (8, B) result against extend_pairs_plain's
     (or any form the plain one equals): bitwise equal in all 8 fields, on

@@ -9,7 +9,20 @@ version (the port's chunked ``extend_pairs_packed``), the window-dense
 form where its window holds every extension, the wrapper's CPU path and
 the JAX package's ``extend_pairs_packed``.  ``extend_batch`` on a CPU
 searcher keeps its form: window-dense up to 512 residues, chunked beyond.
+
+``extend_lane_group`` is a numpy model of the kernel's group algorithm,
+step for step at group width G (the kernel's warp of 32, and 8 and 16,
+since the algorithm does not depend on the width): the G pairs of a step
+read at once, greedy's first failure from a ballot, x-drop's Hillis-Steele
+inclusive sum scan from the carried score, its max scan keeping the first
+maximum's rank, the stop test against max(carried max, scan) - drop and
+the first violation from a ballot.  It equals the scalar reference at
+every width, and the chunked form at chunk width G equals the JAX
+package's: the width changes nothing.  kernel_checks.extend_tie_inputs
+makes the running maximum tie across chunk boundaries at every width.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -266,4 +279,170 @@ def test_extend_batch_on_cpu_keeps_its_form(monkeypatch, plen, windowed):
     want = extend_reference(s.seq, s.seq, six,
                             int(s.cutoffs.ungap_ext_drop),
                             seed_index.SEED_LEN)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---- the kernel's group algorithm, step for step ---------------------------
+
+def _pairs(q, d, q0, d0, sign, i):
+    """The clamped residue pairs at offsets i (a numpy vector) from
+    (q0, d0) in direction sign, as the group's threads read them."""
+    def at(s, x):
+        return np.clip(s[np.clip(x, 0, len(s) - 1)], 0, 20)
+    return at(q, q0 + sign * i), at(d, d0 + sign * i)
+
+
+def _scan_sum(x):
+    """Hillis-Steele inclusive sum over the group (shuffle up by 1, 2, 4,
+    ...; rank t adds rank t - o where t >= o)."""
+    o = 1
+    while o < len(x):
+        y = x.copy()
+        y[o:] += x[:-o]
+        x, o = y, o * 2
+    return x
+
+
+def _scan_max(x):
+    """Hillis-Steele inclusive max with the first maximum's rank: rank t
+    takes rank t - o's pair where that value is >= its own."""
+    m, arg, o = x.copy(), np.arange(len(x)), 1
+    while o < len(x):
+        take = np.zeros(len(x), bool)
+        take[o:] = m[:-o] >= m[o:]
+        m2, a2 = m.copy(), arg.copy()
+        m2[o:] = np.where(take[o:], m[:-o], m[o:])
+        a2[o:] = np.where(take[o:], arg[:-o], arg[o:])
+        m, arg, o = m2, a2, o * 2
+    return m, arg
+
+
+def _first(ballot, default):
+    hit = np.flatnonzero(ballot)
+    return int(hit[0]) if hit.size else default
+
+
+def _greedy_group(q, d, q0, d0, limit, sign, g):
+    ext = score = match = 0
+    while True:
+        i = ext + np.arange(g)
+        a, b = _pairs(q, d, q0, d0, sign, i)
+        run = _first(~((i < limit) & (GRP[a] == GRP[b]) & (GRP[a] < 10)), g)
+        score += int(SUB[a[:run], b[:run]].sum())
+        match += int(((a == b) & (a < 20))[:run].sum())
+        ext += run
+        if run < g:
+            return ext, score, match
+
+
+def _xdrop_group(q, d, q0, d0, limit, sign, score0, drop, g, events):
+    if score0 < MINSCORE:
+        return 0, 0, 0
+    s = maxs = score0
+    m_tot = l_tot = best_ext = best_match = 0
+    while True:
+        i = l_tot + np.arange(g)
+        a, b = _pairs(q, d, q0, d0, sign, i)
+        inr = i < limit
+        mb = inr & (a == b) & (a < 20)
+        sc = _scan_sum(np.where(inr, SUB[a, b], PAST_BOUND).astype(np.int64)) \
+            + s
+        mx, arg = _scan_max(sc)
+        viol = (sc < MINSCORE) | (sc < np.maximum(maxs, mx) - drop)
+        stop = _first(viol, g - 1)
+        if mx[stop] > maxs:
+            maxs = int(mx[stop])
+            best_ext = l_tot + int(arg[stop]) + 1
+            best_match = m_tot + int(mb[:arg[stop] + 1].sum())
+        elif mx[stop] == maxs and best_ext > 0:
+            events["tie_across_chunks"] += 1
+        if (sc[:stop + 1] == mx[stop]).sum() > 1:
+            events["tie_in_chunk"] += 1
+        if l_tot + stop >= limit:
+            events["past_bound_stop"] += 1
+        s = int(sc[stop])
+        m_tot += int(mb[:stop + 1].sum())
+        l_tot += stop + 1
+        if viol.any():
+            return maxs - score0, best_ext, best_match
+
+
+def extend_lane_group(q, d, lane, drop, g, events, seed_len=10):
+    """One lane as the kernel's group of g threads runs it -> its 8
+    PACK_KEYS; ``events`` counts what the x-drop steps met."""
+    qpos, dpos, qlo, qhi, dlo, dhi = (int(x) for x in lane)
+    a, b = _pairs(q, d, qpos, dpos, 1, np.arange(seed_len))
+    score = int(SUB[a, b].sum())
+    match = int(((a == b) & (a < 20)).sum())
+    fwd = max(0, min(qhi - (qpos + seed_len), dhi - (dpos + seed_len)))
+    gf, s_, m_ = _greedy_group(q, d, qpos + seed_len, dpos + seed_len, fwd,
+                               1, g)
+    score, match = score + s_, match + m_
+    bwd = max(0, min(qpos - qlo, dpos - dlo))
+    gb, s_, m_ = _greedy_group(q, d, qpos - 1, dpos - 1, bwd, -1, g)
+    score, match = score + s_, match + m_
+    if score < MINSCORE:
+        events["low_gate"] += 1
+    local = seed_len + gf + gb
+    q_seed, d_seed = qpos - gb, dpos - gb
+    xf_lim = max(0, min(qhi - (q_seed + local), dhi - (d_seed + local)))
+    xf_s, xf_ext, xf_m = _xdrop_group(q, d, q_seed + local, d_seed + local,
+                                      xf_lim, 1, score, drop, g, events)
+    xb_lim = max(0, min(q_seed - qlo, d_seed - dlo))
+    xb_s, xb_ext, xb_m = _xdrop_group(q, d, q_seed - 1, d_seed - 1, xb_lim,
+                                      -1, score, drop, g, events)
+    return (score + xf_s + xb_s, match + xf_m + xb_m, score, match,
+            q_seed - xb_ext, q_seed + local + xf_ext, d_seed - xb_ext,
+            d_seed + local + xf_ext)
+
+
+def _ties(rng):
+    seq, six = kc.extend_tie_inputs(rng)
+    return seq, six, int((six[3] - six[2]).max())
+
+
+CASES = {**WORKLOADS, "ties": _ties}
+
+
+@functools.lru_cache(maxsize=None)
+def _case(name, drop):
+    """(seq, six, the scalar reference's result) of a workload; seeded by
+    the workload's name and the drop alone."""
+    rng = np.random.default_rng(list(CASES).index(name) * 100 + drop + 7)
+    seq, six, _ = CASES[name](rng)
+    return seq, six, extend_reference(seq, seq, six, drop)
+
+
+@pytest.mark.parametrize("g", [8, 16, 32])
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("drop", [9, 30])
+def test_group_algorithm_is_the_scalar_reference(g, name, drop):
+    seq, six, want = _case(name, drop)
+    # long proteins: every third lane keeps the case inside its time
+    lanes = range(0, six.shape[1], 3 if name == "long" else 1)
+    events = dict.fromkeys(("tie_across_chunks", "tie_in_chunk",
+                            "past_bound_stop", "low_gate"), 0)
+    got = np.array([extend_lane_group(seq, seq, six[:, j], drop, g, events)
+                    for j in lanes], np.int32).T
+    np.testing.assert_array_equal(got, want[:, list(lanes)])
+    if name == "ties":
+        assert events["tie_across_chunks"] > 20, events
+        assert events["tie_in_chunk"] > 20, events
+        assert events["past_bound_stop"] > 20, events
+        assert events["low_gate"] >= six.shape[1] // 8, events
+
+
+@pytest.mark.parametrize("g", [8, 16, 32])
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("drop", [9, 30])
+def test_chunk_width_changes_nothing(monkeypatch, g, name, drop):
+    """The port's chunked extend_pairs_packed at chunk width g (the
+    kernel's group width) equals the JAX package's extend_pairs_packed in
+    all 8 fields."""
+    seq, six, want = _case(name, drop)
+    monkeypatch.setattr(extend, "CHUNK", g)
+    got = extend.extend_pairs_packed(_t(seq), _t(seq), _t(six), drop)
+    jw = jext.extend_pairs_packed(jnp.asarray(seq), jnp.asarray(seq),
+                                  jnp.asarray(six), jnp.int32(drop), 10)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jw))
     np.testing.assert_array_equal(got.numpy(), want)

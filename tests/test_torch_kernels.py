@@ -178,6 +178,119 @@ def test_prune_launch_ranges_cover_every_column_once(b):
     assert (cover == 1).all() or tiles == 0
 
 
+_GEOMETRY_B = (1, 2, 7, 31, 1000, 8192, 96_846, 100_003, 1 << 22)
+
+
+def _check_bounds_layout(geo, bs, l):
+    """The shared-memory regions of a bounds geometry: each 16-byte
+    aligned, each the size its contents take, in order and inside the
+    total (the conditions the kernel's C entry tests)."""
+    tile, threads, lay = geo["tile"], geo["threads"], geo
+    cols = tile * l
+    assert lay == {**lay, **ck.bounds_layout(tile, bs, l, lay["stages"],
+                                             threads)}
+    for k in ("vmask", "rsum", "tab", "cnt", "stage0", "rows_cap",
+              "stage_bytes"):
+        assert lay[k] % 16 == 0, k
+    assert lay["vmask"] >= 4 * 20 * 8
+    assert lay["rsum"] >= lay["vmask"] + 4 * tile * (-(-bs // 32))
+    assert lay["tab"] >= lay["rsum"] + 4 * threads
+    assert lay["ncp"] % 32 == 0
+    if cols <= threads:             # the table reuses the counts' bytes
+        assert lay["cnt"] == lay["tab"] and lay["ncp"] >= cols
+        assert lay["stage0"] >= lay["tab"] + 4 * max(20 * lay["ncp"],
+                                                     21 * cols)
+    else:                           # columns in rounds: counts of their own
+        assert tile == 1 and lay["ncp"] >= threads
+        assert lay["cnt"] >= lay["tab"] + 4 * 21 * cols
+        assert lay["stage0"] >= lay["cnt"] + 4 * 20 * lay["ncp"]
+    assert lay["stages"] in (1, 2)
+    assert lay["rows_cap"] >= tile * bs * l + 30
+    assert lay["stage_bytes"] >= lay["rows_cap"] + (
+        4 * tile * bs + 30 if lay["stages"] == 2 else 0)
+    assert lay["smem"] == lay["stage0"] + lay["stages"] * lay["stage_bytes"]
+    assert lay["smem"] <= ck.MAX_SHARED
+
+
+@pytest.mark.parametrize("bs", [1, 8, 32, 33, 64])
+@pytest.mark.parametrize("l", [8, 25, 33, 40])
+def test_bounds_launch_geometry_covers_every_block_once(bs, l):
+    """The bounds kernel's tiles cover blocks 0..B-1 once, its persistent
+    grid walks every tile once, one CUDA block fits an SM's shared memory
+    and the grid its limits, for B from 1 to 2^22."""
+    for b in _GEOMETRY_B:
+        for sms, per_sm in ((132, 4), (132, 1), (1, 1)):
+            geo = ck.bounds_launch_geometry(b, bs, l, sms, per_sm)
+            tile, tiles, grid, threads = (geo[k] for k in
+                                          ("tile", "tiles", "grid",
+                                           "threads"))
+            _check_bounds_layout(geo, bs, l)
+            # a thread per column and per row of a tile
+            assert tile == 1 or (tile * l <= threads
+                                 and tile * bs <= threads)
+            assert threads % 32 == 0 and 32 <= threads <= 1024
+            assert 1 <= grid <= min(tiles, sms * per_sm, ck.MAX_GRID_X)
+            # tile t holds blocks [t*tile, min(b, (t+1)*tile)), none empty
+            lo = np.arange(tiles) * tile
+            hi = np.minimum(lo + tile, b)
+            assert (hi > lo).all() and lo[0] == 0 and hi[-1] == b
+            assert (lo[1:] == hi[:-1]).all()
+            # CUDA block g walks tiles g, g + grid, ...
+            walked = np.zeros(tiles, np.int64)
+            for g in range(grid):
+                walked[g::grid] += 1
+            assert (walked == 1).all()
+    with pytest.raises(ValueError):
+        ck.bounds_launch_geometry(10, 65536, 25, 132, 1)
+    with pytest.raises(ValueError):
+        ck.bounds_launch_geometry(10, 32, 10_000, 132, 1)
+
+
+def _warp_per_block_smem(bs, l):
+    """Shared bytes of a bounds pass that gives each block one warp and
+    stages its counts (L, 20), centroid (L, 8), table (L, 20), rows and
+    row flags, with the coordinate table beside them."""
+    return (4 * 20 * 8 + 4 * 20 * l + 4 * 8 * l + 4 * 20 * l
+            + -(-bs * l // 16) * 16 + -(-bs // 16) * 16)
+
+
+@pytest.mark.parametrize("l", [1, 8, 25, 40, 255, 256, 257, 300, 1000])
+def test_bounds_geometry_takes_every_shape_a_warp_per_block_fits(l):
+    """Every (bs, L) whose block fits in shared memory with a warp of its
+    own fits the bounds kernel: L past the threads of a block takes its
+    columns in rounds, and a block of thousands of rows is staged one tile
+    at a time with order read from global memory."""
+    lo, hi = 1, 1 << 20             # the largest bs that fits, bisected
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if _warp_per_block_smem(mid, l) <= \
+            ck.MAX_SHARED else (lo, mid - 1)
+    for bs in sorted({1, 8, 32, 33, 4096, lo // 2, lo}):
+        if _warp_per_block_smem(bs, l) > ck.MAX_SHARED:
+            continue
+        geo = ck.bounds_launch_geometry(100, bs, l, 132, 2)
+        _check_bounds_layout(geo, bs, l)
+        if geo["tile"] * l > geo["threads"]:
+            assert geo["tile"] == 1 and l > geo["threads"]
+    if l == 25:
+        geo = ck.bounds_launch_geometry(100, 4096, 25, 132, 2)
+        assert geo["tile"] == 1 and geo["stages"] == 1
+        assert ck.bounds_launch_geometry(100, 32, 25, 132, 2)["stages"] == 2
+
+
+@pytest.mark.parametrize("b", _GEOMETRY_B)
+def test_extend_launch_geometry_covers_every_lane_once(b):
+    """The extension kernel's grid holds every lane once (lane j in CUDA
+    block j // lanes_per_block), with static tables that fit and a grid
+    within its limit."""
+    geo = ck.extend_launch_geometry(b)
+    lanes, grid = geo["lanes_per_block"], geo["grid"]
+    assert ck.EXTEND_GROUP * lanes == geo["threads"] == ck.EXTEND_THREADS
+    assert (grid - 1) * lanes < b <= grid * lanes <= 2 * b + lanes
+    assert 1 <= grid <= ck.MAX_GRID_X
+    assert geo["smem"] <= ck.MAX_SHARED
+
+
 def test_cpu_wrappers_take_plain_versions(rng):
     q, c, rad = _prune_inputs(rng)
     qt, ct, rt = (torch.as_tensor(x) for x in (q, c, rad))
@@ -710,3 +823,61 @@ def test_streamed_bounds_are_the_built_index_bounds_on_cuda():
         ck.block_bounds_plain(idx.db_sorted, idx.order, idx.n_points,
                               coords), coords)
     assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop", [9, 30])
+def test_extend_kernel_ties_and_bounds_on_cuda(drop):
+    """The kernel equals the chunked form bitwise on lanes whose running
+    maximum ties across chunk boundaries, lanes that run to a protein's
+    end (the past-bound score stops them), gate scores below MINSCORE,
+    and kernel_checks.extend_inputs' mixed lanes."""
+    dev = _cuda()
+    for seed, make in ((1, kc.extend_tie_inputs), (2, kc.extend_inputs)):
+        seq, six = make(np.random.default_rng(seed + drop))
+        s, x = (torch.as_tensor(a, device=dev) for a in (seq, six))
+        got = ck.extend_pairs(s, s, x, drop)
+        res = kc.extend_agreement(got, ck.extend_pairs_plain(s, s, x, drop))
+        assert res["ok"], (seed, drop, res)
+    occ = ck.resident_warps("extend_pairs", ck.extend_launch_geometry(8192),
+                            dev)
+    assert occ["warps_per_sm"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,l", [(bs, l) for bs in (1, 8, 32, 33, 64)
+                                  for l in (8, 25, 33, 40)]
+                         + [(32, 300), (4096, 25), (8192, 25)])
+def test_block_bounds_kernel_ragged_on_cuda(bs, l):
+    """The bounds kernel against its plain version at ragged shapes, with
+    B past one wave of the persistent grid and not a multiple of the tile,
+    padding blocks, partly valid blocks and a row span that starts off a
+    16-byte boundary (a view one block in); L = 300 takes a tile's
+    columns in rounds, and bs 4096 and 8192 stage one tile at a time."""
+    dev = _cuda()
+    rng = np.random.default_rng(bs * 100 + l)
+    geo = ck.bounds_geometry_on(dev, 1 << 30, bs, l)    # the full grid
+    waves = 3 if bs * l <= 2048 else 1
+    b = waves * geo["tile"] * geo["grid"] + 3
+    n = 50_000
+    fam = rng.integers(0, 20, (40, bs * l))
+    rows = np.where(rng.random((b + 1, bs * l)) < 0.1,
+                    rng.integers(0, 20, (b + 1, bs * l)),
+                    fam[rng.integers(0, 40, b + 1)]).astype(np.int8)
+    order = rng.integers(0, n, (b + 1, bs)).astype(np.int32)
+    order[rng.random((b + 1, bs)) < 0.3] = n
+    order[::7] = n
+    coords = td.const("coords", dev)
+    r_all = torch.as_tensor(rows, device=dev)
+    o_all = torch.as_tensor(order, device=dev)
+    for r_, o_ in ((r_all[:b], o_all[:b]), (r_all[1:], o_all[1:])):
+        assert r_.is_contiguous() and o_.is_contiguous()
+        before = ck.block_bounds.launches
+        got = ck.block_bounds(r_, o_, n, coords)
+        assert ck.block_bounds.launches == before + 1
+        res = kc.bounds_agreement(got, ck.block_bounds_plain(r_, o_, n,
+                                                             coords), coords)
+        assert res["ok"] and res["padding_blocks"] >= b // 7, res
+    occ = ck.resident_warps("block_bounds",
+                            ck.bounds_geometry_on(dev, b, bs, l), dev)
+    assert occ["warps_per_sm"] > 0
