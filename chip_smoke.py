@@ -1979,7 +1979,6 @@ def run_stream(dev, n_log2, n_centers, cli, trace_out, lloyd):
                 f"{k}/{ns}") if n_log2 == STREAM_N_LOG2 else None,
             "block_bounds_per_call": ns - k,
             "seg_walls_s": st["seg_walls_s"],
-            "upload_dispatch_s": st["upload_dispatch_s"],
             "h2d_ms": [h2d.get(i) for i in range(ns)],
             "h2d_gb_per_s": [sidx.segments[i].nbytes / (h2d[i] * 1e6)
                              if h2d.get(i) else None for i in range(ns)],

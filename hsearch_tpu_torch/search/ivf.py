@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from .. import _device
 from ..core import embedding
 from ..ops import compact, cuda_kernels, distance
+from ..utils import profiling
 from .motif import _center_ptables, _check_kmers
 
 
@@ -398,24 +399,29 @@ def _search_block_hits(index: IVFIndex, centers: torch.Tensor,
     n = index.n_points
     bs = index.block_size
     b = index.num_blocks
-    key, gmin, n_alive = cuda_kernels.sq_distance_prune(
-        centers_emb, index.block_centroid, index.block_radius, float(r))
+    with profiling.span("ivf.prune"):
+        key, gmin, n_alive = cuda_kernels.sq_distance_prune(
+            centers_emb, index.block_centroid, index.block_radius, float(r))
     kb = min(k_blocks, b)
-    if b >= 4 * _SELECT_GROUP:
-        neg, blk_ids = _cascade_top_blocks(key, gmin, kb, approx_select)
-    else:
-        neg, blk_ids = _select_nearest(key[:, :b], kb, approx_select)
-    ptab = _center_ptables(centers, index.kmer_len)
-    # r is float32 and squared in float32, as the JAX package does
-    d2m, n_hits = cuda_kernels.ptable_verify(
-        ptab, index.db_sorted, index.order, blk_ids, neg, float(r * r), n)
-    negd, sel = torch.topk(-d2m, min(max_hits, d2m.shape[1]), dim=1)
-    found = torch.isfinite(negd)
-    # the hit's id: row sel % bs of the selected block sel // bs
-    slot = torch.gather(blk_ids, 1, sel // bs) * bs + sel % bs
-    out_ids = torch.where(found,
-                          index.order.view(-1)[torch.where(found, slot, 0)],
-                          torch.full_like(sel, n, dtype=index.order.dtype))
+    with profiling.span("ivf.select"):
+        if b >= 4 * _SELECT_GROUP:
+            neg, blk_ids = _cascade_top_blocks(key, gmin, kb, approx_select)
+        else:
+            neg, blk_ids = _select_nearest(key[:, :b], kb, approx_select)
+    with profiling.span("ivf.verify"):
+        ptab = _center_ptables(centers, index.kmer_len)
+        # r is float32 and squared in float32, as the JAX package does
+        d2m, n_hits = cuda_kernels.ptable_verify(
+            ptab, index.db_sorted, index.order, blk_ids, neg, float(r * r),
+            n)
+    with profiling.span("ivf.top_hits"):
+        negd, sel = torch.topk(-d2m, min(max_hits, d2m.shape[1]), dim=1)
+        found = torch.isfinite(negd)
+        # the hit's id: row sel % bs of the selected block sel // bs
+        slot = torch.gather(blk_ids, 1, sel // bs) * bs + sel % bs
+        out_ids = torch.where(
+            found, index.order.view(-1)[torch.where(found, slot, 0)],
+            torch.full_like(sel, n, dtype=index.order.dtype))
     return out_ids, -negd, n_hits, n_alive
 
 
@@ -427,11 +433,14 @@ def _search_block(index: IVFIndex, centers: torch.Tensor,
     int32 buffer — ops/compact layout with meta = [n_hits (C),
     n_alive (C)]; ids (C, max_hits) sentinel-N and d2 (C, max_hits) as
     the lossless overflow fallback)."""
-    out_ids, out_d2, n_hits, n_alive = _search_block_hits(
-        index, centers, centers_emb, r, k_blocks, max_hits, approx_select)
-    packed = compact.pack_hits(out_ids, out_d2, index.n_points,
-                               meta_vecs=(n_hits, n_alive),
-                               cap_frac=cap_frac, with_d2=with_d2)
+    with profiling.span("ivf.block"):
+        out_ids, out_d2, n_hits, n_alive = _search_block_hits(
+            index, centers, centers_emb, r, k_blocks, max_hits,
+            approx_select)
+        with profiling.span("ivf.pack"):
+            packed = compact.pack_hits(out_ids, out_d2, index.n_points,
+                                       meta_vecs=(n_hits, n_alive),
+                                       cap_frac=cap_frac, with_d2=with_d2)
     return packed, out_ids, out_d2
 
 
@@ -484,6 +493,7 @@ def _approximates(dev: torch.device) -> bool:
     return dev.type == "cuda"
 
 
+@profiling.spanned("ivf.search")
 def search(index: IVFIndex, centers: np.ndarray, radius: float,
            k_blocks: int = 64, max_hits: int = 256,
            center_block: int = 256, retry_overflow: bool = True,
@@ -523,6 +533,16 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
     once every center block's device work is queued and before any result
     is read back: the segmented engine queues its next upload there, so
     the copy runs under this search's kernels.
+
+    ``stats_out`` also receives ``d2h_bytes`` (every buffer read back:
+    the packed buffers, a re-dispatch's, the full fallback buffers) and
+    ``h2d_bytes`` (the padded centers and their embedding), the retry's
+    included.  In a recording ``torch.profiler`` trace the call is the
+    span ``ivf.search``: ``ivf.centers``, per center block ``ivf.block``
+    (``ivf.prune``, ``ivf.select``, ``ivf.verify``, ``ivf.top_hits``,
+    ``ivf.pack``), then per block ``ivf.d2h``, ``ivf.unpack`` and
+    ``ivf.host_d2`` (or ``ivf.redispatch``, ``ivf.fallback``), then
+    ``ivf.assemble`` and ``ivf.retry``.
     """
     dev = index.device
     c_total = centers.shape[0]
@@ -530,8 +550,6 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
     is_kmers = np.issubdtype(centers.dtype, np.integer)
     if is_kmers:
         _check_kmers(centers, "centers")
-    cemb_all = embedding.embed_kmers(centers) if is_kmers \
-        else centers.astype(np.float32)
     n = index.n_points
     host_km = index.host_kmers
     if transfer_d2 is None:
@@ -548,14 +566,19 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
     approx = bool(approx_select) and _approximates(dev)
     r = np.float32(radius)
     cdtype = np.int32 if is_kmers else np.float32
-    # pad to whole center blocks and upload once: a host->device copy
-    # inside the dispatch loop would wait for the blocks already queued
-    pad_total = (-c_total) % center_block
-    cpad = np.pad(centers.astype(cdtype),
-                  ((0, pad_total),) + ((0, 0),) * (centers.ndim - 1))
-    epad = np.pad(cemb_all, ((0, pad_total), (0, 0)))
-    cdev = torch.as_tensor(cpad, device=dev)
-    edev = torch.as_tensor(epad, device=dev)
+    with profiling.span("ivf.centers"):
+        cemb_all = embedding.embed_kmers(centers) if is_kmers \
+            else centers.astype(np.float32)
+        # pad to whole center blocks and upload once: a host->device copy
+        # inside the dispatch loop would wait for the blocks already queued
+        pad_total = (-c_total) % center_block
+        cpad = np.pad(centers.astype(cdtype),
+                      ((0, pad_total),) + ((0, 0),) * (centers.ndim - 1))
+        epad = np.pad(cemb_all, ((0, pad_total), (0, 0)))
+        cdev = torch.as_tensor(cpad, device=dev)
+        edev = torch.as_tensor(epad, device=dev)
+    h2d_bytes = cpad.nbytes + epad.nbytes
+    d2h_bytes = 0
     ci, ki, dd = [], [], []
     redo: list[np.ndarray] = []      # center ids that lost the guarantee
     over_blocks = over_hits = 0
@@ -571,24 +594,31 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
         after_dispatch()
     max_alive = 0
     for s, real, (packed, ids, d2) in pending:
-        packed_np = packed.cpu().numpy()
-        hits, (n_hits, n_alive) = compact.unpack_hits(
-            packed_np, (center_block, center_block))
+        with profiling.span("ivf.d2h"):
+            packed_np = packed.cpu().numpy()
+        d2h_bytes += packed_np.nbytes
+        with profiling.span("ivf.unpack"):
+            hits, (n_hits, n_alive) = compact.unpack_hits(
+                packed_np, (center_block, center_block))
         if hits is None and pack_cap_frac > 1:
             # packed-capacity escalation: re-dispatch the SAME block with
             # the buffer sized to the now-known total (cap_frac=1 holds
             # every possible hit) instead of pulling the full buffers
-            total = int(packed_np[2])
-            k_sel = min(max_hits, kb_used * index.block_size)
-            cap = pack_cap_frac
-            while cap > 1 and (center_block * k_sel) // cap < total:
-                cap //= 4
-            cap = max(cap, 1)
-            packed, ids, d2 = _search_block(
-                index, cdev[s:s + center_block], edev[s:s + center_block],
-                r, k_blocks, max_hits, cap, transfer_d2, approx)
-            hits, (n_hits, n_alive) = compact.unpack_hits(
-                packed.cpu().numpy(), (center_block, center_block))
+            with profiling.span("ivf.redispatch"):
+                total = int(packed_np[2])
+                k_sel = min(max_hits, kb_used * index.block_size)
+                cap = pack_cap_frac
+                while cap > 1 and (center_block * k_sel) // cap < total:
+                    cap //= 4
+                cap = max(cap, 1)
+                packed, ids, d2 = _search_block(
+                    index, cdev[s:s + center_block],
+                    edev[s:s + center_block], r, k_blocks, max_hits, cap,
+                    transfer_d2, approx)
+                packed_np = packed.cpu().numpy()
+                d2h_bytes += packed_np.nbytes
+                hits, (n_hits, n_alive) = compact.unpack_hits(
+                    packed_np, (center_block, center_block))
         bad = ((n_alive[:real] > kb_used)
                | (n_hits[:real] > max_hits))
         over_blocks += int((n_alive[:real] > kb_used).sum())
@@ -602,31 +632,35 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
             keep = hc0 < real                  # drop padding-center rows
             hc = hc0[keep].astype(np.int64)
             hk = hk0[keep].astype(np.int64)
-            if hd0 is None:
-                # 1-word layout: d2 recomputed from the host k-mers
-                # (sum_l DSQ[q_l, p_l] — the exact verify metric)
-                hd = embedding.DISTANCE_SQUARE[centers[hc + s],
-                                               host_km[hk]].sum(
-                    axis=1, dtype=np.float64).astype(np.float32)
-            else:
-                hd = hd0[keep]
+            with profiling.span("ivf.host_d2"):
+                if hd0 is None:
+                    # 1-word layout: d2 recomputed from the host k-mers
+                    # (sum_l DSQ[q_l, p_l] — the exact verify metric)
+                    hd = embedding.DISTANCE_SQUARE[centers[hc + s],
+                                                   host_km[hk]].sum(
+                        axis=1, dtype=np.float64).astype(np.float32)
+                else:
+                    hd = hd0[keep]
         else:
             # packed capacity overflowed: the full buffers transfer now
-            idsh = ids.cpu().numpy().copy()
-            d2h = d2.cpu().numpy()
-            idsh[real:, :] = n
-            hc, hm = np.nonzero(idsh < n)
-            hk = idsh[hc, hm].astype(np.int64)
-            hd = d2h[hc, hm]
+            with profiling.span("ivf.fallback"):
+                idsh = ids.cpu().numpy().copy()
+                d2h = d2.cpu().numpy()
+                d2h_bytes += idsh.nbytes + d2h.nbytes
+                idsh[real:, :] = n
+                hc, hm = np.nonzero(idsh < n)
+                hk = idsh[hc, hm].astype(np.int64)
+                hd = d2h[hc, hm]
         ci.append(hc + s)
         ki.append(hk)
         dd.append(np.sqrt(np.maximum(hd, 0.0)))
     if not ci:
         return (np.empty(0, np.int64), np.empty(0, np.int64),
                 np.empty(0, np.float32))
-    out_c = np.concatenate(ci)
-    out_k = np.concatenate(ki)
-    out_d = np.concatenate(dd).astype(np.float32)
+    with profiling.span("ivf.assemble"):
+        out_c = np.concatenate(ci)
+        out_k = np.concatenate(ki)
+        out_d = np.concatenate(dd).astype(np.float32)
     redo_ids = np.concatenate(redo) if redo else np.empty(0, np.int64)
     can_grow = kb_used < index.num_blocks or over_hits
     if retry_overflow and redo_ids.size and can_grow:
@@ -636,24 +670,27 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
         # kb is bounded by the block count, so this terminates
         kb2 = min(4 * kb_used, index.num_blocks)
         cb2 = max(1, (center_block * kb_used) // kb2)
-        keep = ~np.isin(out_c, redo_ids)
         sub_stats: dict = {}
-        rc, rk, rd = search(
-            index, centers[redo_ids], radius, k_blocks=kb2,
-            max_hits=2 * max_hits if over_hits else max_hits,
-            center_block=cb2, retry_overflow=True,
-            stats_out=sub_stats, pack_cap_frac=pack_cap_frac,
-            approx_select=approx_select, transfer_d2=transfer_d2)
-        out_c = np.concatenate([out_c[keep], redo_ids[rc]])
-        out_k = np.concatenate([out_k[keep], rk])
-        out_d = np.concatenate([out_d[keep], rd]).astype(np.float32)
+        with profiling.span("ivf.retry"):
+            keep = ~np.isin(out_c, redo_ids)
+            rc, rk, rd = search(
+                index, centers[redo_ids], radius, k_blocks=kb2,
+                max_hits=2 * max_hits if over_hits else max_hits,
+                center_block=cb2, retry_overflow=True,
+                stats_out=sub_stats, pack_cap_frac=pack_cap_frac,
+                approx_select=approx_select, transfer_d2=transfer_d2)
+            out_c = np.concatenate([out_c[keep], redo_ids[rc]])
+            out_k = np.concatenate([out_k[keep], rk])
+            out_d = np.concatenate([out_d[keep], rd]).astype(np.float32)
         if stats_out is not None:
             stats_out.update(
                 max_alive=max(max_alive, sub_stats.get("max_alive", 0)),
                 retried=int(redo_ids.size) + sub_stats.get("retried", 0),
                 retry_depth=1 + sub_stats.get("retry_depth", 0),
                 over_blocks=sub_stats.get("over_blocks", 0),
-                over_hits=sub_stats.get("over_hits", 0))
+                over_hits=sub_stats.get("over_hits", 0),
+                d2h_bytes=d2h_bytes + sub_stats["d2h_bytes"],
+                h2d_bytes=h2d_bytes + sub_stats["h2d_bytes"])
         return out_c, out_k, out_d
     elif (over_blocks or over_hits) and stats_out is None:
         if over_blocks:
@@ -671,4 +708,6 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
         stats_out.setdefault("retry_depth", 0)
         stats_out["over_blocks"] = over_blocks
         stats_out["over_hits"] = over_hits
+        stats_out["d2h_bytes"] = d2h_bytes
+        stats_out["h2d_bytes"] = h2d_bytes
     return out_c, out_k, out_d

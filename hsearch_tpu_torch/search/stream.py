@@ -47,6 +47,7 @@ import torch
 from .. import _device
 from ..core import embedding
 from ..ops import distance
+from ..utils import profiling
 from . import ivf
 
 
@@ -359,6 +360,19 @@ def _adopt(index: ivf.IVFIndex, stream: torch.cuda.Stream) -> None:
         t.record_stream(stream)
 
 
+def _timed_wait(main: torch.cuda.Stream, side: torch.cuda.Stream):
+    """``main.wait_stream(side)`` between two timing events recorded on
+    ``main``: their elapsed time is how long ``main`` stalled on ``side``
+    (read once both have run; recording them never synchronises)."""
+    pair = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    pair[0].record(main)
+    main.wait_stream(side)
+    pair[1].record(main)
+    return pair
+
+
+@profiling.spanned("stream.search_segmented")
 def search_segmented(sidx: SegmentedIVF, centers: np.ndarray,
                      radius: float, k_blocks: int = 64,
                      max_hits: int = 256, center_block: int = 256,
@@ -371,32 +385,45 @@ def search_segmented(sidx: SegmentedIVF, centers: np.ndarray,
     set is the union of the per-segment hit sets, and each segment runs
     the whole engine including the lossless retry ladder.  The
     ``k_blocks`` cap applies per segment.  Streamed segments are double
-    buffered (see the module docstring); ``upload_dispatch_s`` is the host
-    time to queue each next upload.  ``stats_out`` receives the
+    buffered (see the module docstring).  ``stats_out`` receives the
     summed overflow counts, ``max_alive``, ``segments``,
-    ``resident_fraction``, the per-segment search walls ``seg_walls_s``
-    and ``upload_dispatch_s``.
+    ``resident_fraction``, the per-segment search walls ``seg_walls_s``,
+    the summed ``d2h_bytes`` and ``h2d_bytes`` of the segments' searches
+    (``h2d_bytes`` with each streamed segment's upload) and, while a
+    ``torch.profiler`` trace records on a CUDA device, ``upload_wait_ms``:
+    the device time the current stream stalled on the uploads, from CUDA
+    events read after the last result came back.
     ``h2d_events``, when given on a CUDA device, receives (segment, start,
     end) CUDA events around each streamed segment's copies.
+
+    In a recording trace the call is the span ``stream.search_segmented``:
+    per segment ``stream.segment`` around its ``ivf.search``, per
+    streamed segment ``stream.upload`` (queueing its copies and bounds
+    pass) and, on a CUDA device, ``stream.adopt`` (the wait for it).
     """
     dev = sidx.device
     cuda = dev.type == "cuda"
     main = torch.cuda.current_stream(dev) if cuda else None
     side = torch.cuda.Stream(dev) if cuda else None
+    uploaded = 0                      # bytes of the streamed segments
 
     def fetch(i):
+        nonlocal uploaded
         if sidx.resident[i] is not None:
             return sidx.resident[i]
-        ev = [] if h2d_events is not None and cuda else None
-        up = upload_segment(sidx.segments[i], dev, stream=side, events=ev)
+        with profiling.span("stream.upload"):
+            ev = [] if h2d_events is not None and cuda else None
+            up = upload_segment(sidx.segments[i], dev, stream=side,
+                                events=ev)
         if ev:
             h2d_events.append((i, *ev[0]))
+        uploaded += sidx.segments[i].nbytes
         return up
 
     out_c, out_k, out_d = [], [], []
     seg_stats: list[dict] = []
     seg_walls: list[float] = []
-    upload_dispatch: list[float] = []
+    waits: list = []                  # (before, after) CUDA event pairs
     pending = None
     for i, seg in enumerate(sidx.segments):
         cur = pending if pending is not None else fetch(i)
@@ -404,26 +431,29 @@ def search_segmented(sidx: SegmentedIVF, centers: np.ndarray,
         if cuda and sidx.resident[i] is None:
             # before the next upload is queued on the side stream: waiting
             # later would also wait for that upload
-            main.wait_stream(side)
-            _adopt(cur, main)
+            with profiling.span("stream.adopt"):
+                if stats_out is not None and profiling.recording():
+                    waits.append(_timed_wait(main, side))
+                else:
+                    main.wait_stream(side)
+                _adopt(cur, main)
         nxt: list = []
 
         def queue_next(i=i, nxt=nxt):
             # called by ivf.search once this segment's kernels are queued,
             # so the next copy and bounds pass run under them
             if i + 1 < len(sidx.segments):
-                t0 = time.perf_counter()
                 nxt.append(fetch(i + 1))
-                upload_dispatch.append(time.perf_counter() - t0)
 
         st: dict = {}
-        t0 = time.perf_counter()
-        ci, ki, dd = ivf.search(cur, centers, radius, k_blocks=k_blocks,
-                                max_hits=max_hits, center_block=center_block,
-                                retry_overflow=retry_overflow, stats_out=st,
-                                pack_cap_frac=pack_cap_frac,
-                                after_dispatch=queue_next)
-        seg_walls.append(round(time.perf_counter() - t0, 3))
+        with profiling.span("stream.segment"):
+            t0 = time.perf_counter()
+            ci, ki, dd = ivf.search(
+                cur, centers, radius, k_blocks=k_blocks, max_hits=max_hits,
+                center_block=center_block, retry_overflow=retry_overflow,
+                stats_out=st, pack_cap_frac=pack_cap_frac,
+                after_dispatch=queue_next)
+            seg_walls.append(round(time.perf_counter() - t0, 3))
         pending = nxt[0] if nxt else None
         seg_stats.append(st)
         out_c.append(ci)
@@ -434,13 +464,18 @@ def search_segmented(sidx: SegmentedIVF, centers: np.ndarray,
     ki = np.concatenate(out_k) if out_k else np.empty(0, np.int64)
     dd = np.concatenate(out_d) if out_d else np.empty(0, np.float32)
     if stats_out is not None:
-        for k in ("over_blocks", "over_hits", "retried"):
+        for k in ("over_blocks", "over_hits", "retried", "d2h_bytes",
+                  "h2d_bytes"):
             stats_out[k] = sum(s.get(k, 0) for s in seg_stats)
+        stats_out["h2d_bytes"] += uploaded
         stats_out["max_alive"] = max(
             (s.get("max_alive", 0) for s in seg_stats), default=0)
         stats_out["segments"] = len(seg_stats)
         stats_out["resident_fraction"] = sidx.resident_fraction()
         stats_out["seg_walls_s"] = seg_walls
-        stats_out["upload_dispatch_s"] = [round(u, 3)
-                                          for u in upload_dispatch]
+        if waits:
+            # every event is behind a result already read back: no stall
+            waits[-1][1].synchronize()
+            stats_out["upload_wait_ms"] = sum(a.elapsed_time(b)
+                                              for a, b in waits)
     return ci, ki, dd

@@ -110,8 +110,10 @@ def test_jax_checkpoint_capped_kb_identical_hits(jax_seg):
     assert st["max_alive"] == jst["max_alive"]
     assert _pairs(got) == _pairs(want)
     assert len(got[0]) > 50
-    # the same keys as JAX's search statistics
-    assert set(st) == set(jst)
+    # JAX's search statistics, its upload times replaced by the
+    # ``stream.upload`` span, with the bytes copied each way
+    assert set(st) == set(jst) - {"upload_dispatch_s"} | {"d2h_bytes",
+                                                          "h2d_bytes"}
 
 
 def test_port_checkpoint_loads_in_jax(jax_seg, port_seg, tmp_path):
@@ -213,10 +215,14 @@ def test_device_budget_keeps_prefix_resident(rng):
                                                       False]
     assert sidx.resident_fraction() == 0.5
     st: dict = {}
-    got = stream.search_segmented(sidx, centers, 30.0, k_blocks=64,
-                                  max_hits=512, stats_out=st)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = stream.search_segmented(sidx, centers, 30.0, k_blocks=64,
+                                      max_hits=512, stats_out=st)
+    names = [e.name for e in prof.events()]
     assert st["segments"] == 4 and st["resident_fraction"] == 0.5
-    assert len(st["seg_walls_s"]) == 4 and len(st["upload_dispatch_s"]) == 3
+    # the two streamed segments are uploaded, the resident ones are not
+    assert len(st["seg_walls_s"]) == 4 and names.count("stream.upload") == 2
     assert _pairs(got) == _pairs(exact.search_radius(db, centers, 30.0,
                                                      device="cpu"))
 
