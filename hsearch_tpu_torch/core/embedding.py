@@ -66,3 +66,13 @@ def kmer_sq_distance(a: np.ndarray, b: np.ndarray,
     a: (..., L), b: (..., L) -> (...,), by the per-position decomposition.
     """
     return dsq[a, b].sum(axis=-1)
+
+
+def hit_sq_distance_np(centers: np.ndarray, hc: np.ndarray,
+                       kmers: np.ndarray, hk: np.ndarray) -> np.ndarray:
+    """(h,) float32 squared distance of each hit, center row ``hc[i]``
+    against k-mer row ``hk[i]``: the float64 table sum of
+    ``kmer_sq_distance``, cast.  The numpy twin of
+    ``native_ext.hit_sq_distance``."""
+    return DISTANCE_SQUARE[centers[hc], kmers[hk]].sum(
+        axis=1, dtype=np.float64).astype(np.float32)

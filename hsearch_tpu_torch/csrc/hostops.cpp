@@ -12,6 +12,8 @@
 //   * the aligner's seed-index and probe passes: seed codes, stable radix
 //     argsorts, searchsorted, the sorted-range probe and the fused pair
 //     preparation
+//   * the IVF search's host d² of its hits (search/ivf.py search's 1-word
+//     route), a prefetching pass in numpy's summation order
 //
 // Every function is bitwise equal to its numpy twin in
 // hsearch_tpu_torch/align/hostops.py (and elsewhere in the package), which
@@ -110,7 +112,98 @@ static void radix_argsort(const Key* keys, int64_t n, Index* order) {
   std::memcpy(order, isrc, (size_t)n * sizeof(Index));
 }
 
+// ---------------------------------------------------------------------------
+// numpy's float64 add.reduce over a contiguous run (pairwise_sum in
+// numpy/_core/src/umath/loops_utils.h.src): a plain sum below 8 terms, 8
+// accumulators combined as ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)) and then
+// the rest up to 128 terms, halves (cut at a multiple of 8) above.  The
+// order fixes the float64 last bit, so it is copied, not a sequential sum.
+// ---------------------------------------------------------------------------
+static double numpy_pairwise_sum(const double* a, int64_t n) {
+  if (n < 8) {
+    double res = 0.;
+    for (int64_t i = 0; i < n; ++i) res += a[i];
+    return res;
+  }
+  if (n <= 128) {
+    double r[8];
+    for (int j = 0; j < 8; ++j) r[j] = a[j];
+    int64_t i = 8;
+    for (; i < n - (n % 8); i += 8)
+      for (int j = 0; j < 8; ++j) r[j] += a[i + j];
+    double res = ((r[0] + r[1]) + (r[2] + r[3])) +
+                 ((r[4] + r[5]) + (r[6] + r[7]));
+    for (; i < n; ++i) res += a[i];
+    return res;
+  }
+  int64_t n2 = n / 2;
+  n2 -= n2 % 8;
+  return numpy_pairwise_sum(a, n2) + numpy_pairwise_sum(a + n2, n - n2);
+}
+
 extern "C" {
+
+// ---------------------------------------------------------------------------
+// Squared distance of each IVF hit from the k-mers (search/ivf.py search's
+// 1-word route, core/embedding.py hit_sq_distance_np's twin):
+//   out[i] = (float) sum_l dsq[centers[hc[i]][l] * 20 + kmers[hk[i]][l]]
+// with the sum in float64 in numpy's order (numpy_pairwise_sum), so out is
+// bitwise the twin's.  One pass over the hits whose cost is the random
+// k-mer rows of a large table: the row of the hit kPrefetch ahead is
+// prefetched (both ends: a row may straddle two cache lines).  From
+// kParallelHits hits on, the pass is split over the OpenMP pool (on the
+// H100's host, 82,000 hits of 2^22 rows: 1.5-2.4 ms on 4 threads, 3.2-5.7
+// on one; 2,560 hits: 0.1-0.56 ms on one, 0.2-1.6 on 4).
+// centers (c, l) and kmers (n, l) are int8 residues 0..19, dsq 20x20.
+// Returns the number of hits with an index or a residue out of range
+// (their out is NaN), 0 when every hit is valid.
+// ---------------------------------------------------------------------------
+int64_t hs_hit_sq_distance(const int8_t* centers, int64_t c,
+                           const int8_t* kmers, int64_t n, int64_t l,
+                           const int64_t* hc, const int64_t* hk, int64_t h,
+                           const double* dsq, float* out) {
+  constexpr int64_t kPrefetch = 16;
+  constexpr int64_t kParallelHits = 16384;
+  std::vector<uint8_t> center_ok(c);
+  for (int64_t a = 0; a < c; ++a) {
+    uint8_t mx = 0;
+    for (int64_t j = 0; j < l; ++j)
+      mx = std::max(mx, (uint8_t)centers[a * l + j]);
+    center_ok[a] = mx < 20;
+  }
+  int64_t bad = 0;
+#pragma omp parallel if (h >= kParallelHits) reduction(+ : bad)
+  {
+    std::vector<double> terms(l > 0 ? l : 1);
+#pragma omp for schedule(static)
+    for (int64_t i = 0; i < h; ++i) {
+      if (i + kPrefetch < h && (uint64_t)hk[i + kPrefetch] < (uint64_t)n) {
+        const int8_t* ahead = kmers + hk[i + kPrefetch] * l;
+        __builtin_prefetch(ahead);
+        __builtin_prefetch(ahead + l - 1);
+      }
+      if ((uint64_t)hc[i] >= (uint64_t)c || (uint64_t)hk[i] >= (uint64_t)n
+          || !center_ok[hc[i]]) {
+        out[i] = __builtin_nanf("");
+        ++bad;
+        continue;
+      }
+      // residues read as unsigned: a negative one reads >= 128
+      const uint8_t* q = (const uint8_t*)centers + hc[i] * l;
+      const uint8_t* p = (const uint8_t*)kmers + hk[i] * l;
+      uint8_t mx = 0;
+      for (int64_t j = 0; j < l; ++j) mx = std::max(mx, p[j]);
+      if (mx >= 20) {
+        out[i] = __builtin_nanf("");
+        ++bad;
+        continue;
+      }
+      for (int64_t j = 0; j < l; ++j) terms[j] = dsq[q[j] * 20 + p[j]];
+      out[i] = (float)numpy_pairwise_sum(terms.data(), l);
+    }
+  }
+  return bad;
+}
 
 // ---------------------------------------------------------------------------
 // Thread-budget pin: cap this process's OpenMP pool.  N cooperating

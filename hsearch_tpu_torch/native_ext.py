@@ -5,8 +5,9 @@ hsearch_tpu/native_ext.py).
 clustering: FASTA parsing, the suffix array, union-find, the banded gapped
 traceback, the reference's brute-force scan, and the seed-index and probe
 passes (seed codes, stable radix argsorts, searchsorted, the sorted-range
-probe, the fused pair preparation).  It is host code, parallel over the
-CPU cores with OpenMP.
+probe, the fused pair preparation), and the IVF search's d² of its hits.
+It is host code, parallel over the CPU cores with OpenMP where a pass
+gains from it.
 
 The source is compiled by ``g++`` (or ``$CXX``) with ``-fopenmp`` at first
 use into ``_build/`` beside the package, then linked against the OpenMP
@@ -20,8 +21,9 @@ loads.
 
 There is no fallback: a failed build raises ``RuntimeError`` with the
 compiler's name and log.  The numpy twins (``align/hostops.py``,
-``core/dataprep.suffix_array``, ``cluster/union_find.UnionFind``) are the
-plain versions that the tests hold each binding bitwise equal to.
+``core/dataprep.suffix_array``, ``cluster/union_find.UnionFind``,
+``core/embedding.hit_sq_distance_np``) are the plain versions that the
+tests hold each binding bitwise equal to.
 
 ``calls`` on each binding counts its calls into the library, so a run can
 show that it went through it.
@@ -136,6 +138,9 @@ _SIGNATURES = {
                             _ptr(np.int64), _ptr(np.int64), _I64,
                             _ptr(np.int64), _ptr(np.uint64), _I64, _I64,
                             _ptr(np.int32), _ptr(np.int32)]),
+    "hs_hit_sq_distance": (_I64, [_ptr(np.int8), _I64, _ptr(np.int8), _I64,
+                                  _I64, _ptr(np.int64), _ptr(np.int64), _I64,
+                                  _ptr(np.float64), _ptr(np.float32)]),
 }
 
 
@@ -455,10 +460,56 @@ def probe_sorted(keys: np.ndarray, positions: np.ndarray,
 
 probe_sorted.calls = 0
 
+
+# -- IVF hit distances ------------------------------------------------------
+def hit_sq_distance(centers: np.ndarray, hc: np.ndarray, kmers: np.ndarray,
+                    hk: np.ndarray) -> np.ndarray:
+    """(h,) float32 squared distance of each hit, center row ``hc[i]`` of
+    (C, L) ``centers`` against k-mer row ``hk[i]`` of (N, L) ``kmers``, in
+    one prefetching pass (split over the OpenMP pool from 16,384 hits
+    on): bitwise ``embedding.hit_sq_distance_np``.
+
+    ``kmers`` is read in place and must be C-contiguous int8 (an index's
+    ``host_kmers``; a copy of the table would cost more than the pass);
+    raises ValueError otherwise, or for an index or residue out of
+    range."""
+    from .core import embedding
+    if not (isinstance(kmers, np.ndarray) and kmers.dtype == np.int8
+            and kmers.ndim == 2 and kmers.flags.c_contiguous):
+        raise ValueError(
+            "hit_sq_distance reads kmers in place: it must be a C-contiguous "
+            f"int8 (N, L) array, not {getattr(kmers, 'dtype', type(kmers))} "
+            f"of shape {getattr(kmers, 'shape', None)}")
+    centers = np.asarray(centers)
+    if centers.ndim != 2 or centers.shape[1] != kmers.shape[1]:
+        raise ValueError(f"centers of shape {centers.shape}, k-mers of "
+                         f"length {kmers.shape[1]}")
+    if centers.dtype != np.int8 and centers.size and (
+            centers.min() < 0 or centers.max() >= 20):
+        raise ValueError("residues must be AA indices 0..19")
+    centers = np.ascontiguousarray(centers, np.int8)
+    hc = np.ascontiguousarray(hc, np.int64)
+    hk = np.ascontiguousarray(hk, np.int64)
+    if hc.shape != hk.shape or hc.ndim != 1:
+        raise ValueError(f"hit lists of shapes {hc.shape} and {hk.shape}")
+    out = np.empty(len(hc), np.float32)
+    hit_sq_distance.calls += 1
+    bad = _load().hs_hit_sq_distance(
+        centers, centers.shape[0], kmers, kmers.shape[0], kmers.shape[1], hc,
+        hk, len(hc), np.ascontiguousarray(embedding.DISTANCE_SQUARE,
+                                          np.float64), out)
+    if bad:
+        raise ValueError(f"{bad} hits index a row outside the centers or "
+                         "the k-mers, or a residue outside 0..19")
+    return out
+
+
+hit_sq_distance.calls = 0
+
 BINDINGS = {fn.__name__: fn for fn in (
     parse_fasta_bytes, suffix_array, union_find_labels, brute_search_cpp,
     align_gapped, seed_codes, searchsorted_right, argsort_u64, argsort_u32,
-    pair_prep, probe_sorted)}
+    pair_prep, probe_sorted, hit_sq_distance)}
 
 
 def reset_calls() -> None:

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import _device
+from .. import _device, native_ext
 from ..core import embedding
 from ..ops import compact, cuda_kernels, distance
 from ..utils import profiling
@@ -254,7 +254,8 @@ def build_index(db_kmers: np.ndarray, generator: torch.Generator,
     dev = _device.resolve(device)
     n, l = db_kmers.shape
     _check_kmers(db_kmers, "db_kmers")
-    host_km = np.asarray(db_kmers, np.int8)
+    # C-contiguous: the host d2 pass reads it in place at every search
+    host_km = np.ascontiguousarray(db_kmers, np.int8)
     km = torch.as_tensor(host_km, device=dev)
     if n_cells is None:
         n_cells = max(1, n // block_size)
@@ -517,7 +518,16 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
     (C*max_hits // cap_frac); a block whose hits overflow it is
     re-dispatched with a capacity that fits.  ``transfer_d2=False`` (the
     default with integer centers and an index holding host k-mers) ships
-    one word per hit and recomputes d2 on the host.
+    one word per hit and recomputes d2 on the host, as the JAX package
+    does: a table sum of L entries is cheaper to recompute than to move.
+    The recompute is the host library's prefetching pass
+    ``native_ext.hit_sq_distance``, bitwise its numpy twin
+    ``embedding.hit_sq_distance_np``; like every binding it raises where
+    the library does not build.  It reads ``host_kmers`` in place, which
+    ``build_index`` and the checkpoint loaders hold C-contiguous int8.  On
+    the H100's host, for 82,000 hits into 2^22 25-mers (a 1,024-center
+    batch), the pass takes 1.5-2.4 ms on 4 OpenMP threads and 3.2-5.7 ms
+    on one, the numpy twin 29-30 ms.
 
     ``approx_select=True`` makes the block select approximate
     (``_approx_topk_min``, the counterpart of ``jax.lax.approx_max_k`` at
@@ -535,10 +545,14 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
     the copy runs under this search's kernels.
 
     ``stats_out`` also receives ``d2h_bytes`` (every buffer read back:
-    the packed buffers, a re-dispatch's, the full fallback buffers) and
-    ``h2d_bytes`` (the padded centers and their embedding), the retry's
-    included.  In a recording ``torch.profiler`` trace the call is the
-    span ``ivf.search``: ``ivf.centers``, per center block ``ivf.block``
+    the packed buffers, a re-dispatch's, the full fallback buffers),
+    ``h2d_bytes`` (the padded centers and their embedding),
+    ``host_d2_hits`` (hits whose d2 the host recomputed) and
+    ``host_d2_native_hits`` (of those, the hits the library's pass
+    recomputed: all of them, since the pass has no fallback), the retry's
+    included.  In a recording
+    ``torch.profiler`` trace the call is the span ``ivf.search``:
+    ``ivf.centers``, per center block ``ivf.block``
     (``ivf.prune``, ``ivf.select``, ``ivf.verify``, ``ivf.top_hits``,
     ``ivf.pack``), then per block ``ivf.d2h``, ``ivf.unpack`` and
     ``ivf.host_d2`` (or ``ivf.redispatch``, ``ivf.fallback``), then
@@ -560,6 +574,9 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
             "with host_kmers (build_index sets it; checkpoint round-trips "
             f"it) — got is_kmers={is_kmers}, host_kmers="
             f"{'present' if host_km is not None else 'absent'}")
+    if not transfer_d2:
+        centers_i8 = np.ascontiguousarray(centers, np.int8)
+    host_d2_hits = host_d2_native = 0
     kb_used = min(k_blocks, index.num_blocks)
     if approx_select is None:
         approx_select = os.environ.get("HSEARCH_APPROX_SELECT", "0") == "1"
@@ -636,9 +653,10 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
                 if hd0 is None:
                     # 1-word layout: d2 recomputed from the host k-mers
                     # (sum_l DSQ[q_l, p_l] — the exact verify metric)
-                    hd = embedding.DISTANCE_SQUARE[centers[hc + s],
-                                                   host_km[hk]].sum(
-                        axis=1, dtype=np.float64).astype(np.float32)
+                    hd = native_ext.hit_sq_distance(centers_i8, hc + s,
+                                                    host_km, hk)
+                    host_d2_hits += len(hd)
+                    host_d2_native += len(hd)
                 else:
                     hd = hd0[keep]
         else:
@@ -690,7 +708,10 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
                 over_blocks=sub_stats.get("over_blocks", 0),
                 over_hits=sub_stats.get("over_hits", 0),
                 d2h_bytes=d2h_bytes + sub_stats["d2h_bytes"],
-                h2d_bytes=h2d_bytes + sub_stats["h2d_bytes"])
+                h2d_bytes=h2d_bytes + sub_stats["h2d_bytes"],
+                host_d2_hits=host_d2_hits + sub_stats["host_d2_hits"],
+                host_d2_native_hits=host_d2_native
+                + sub_stats["host_d2_native_hits"])
         return out_c, out_k, out_d
     elif (over_blocks or over_hits) and stats_out is None:
         if over_blocks:
@@ -710,4 +731,6 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
         stats_out["over_hits"] = over_hits
         stats_out["d2h_bytes"] = d2h_bytes
         stats_out["h2d_bytes"] = h2d_bytes
+        stats_out["host_d2_hits"] = host_d2_hits
+        stats_out["host_d2_native_hits"] = host_d2_native
     return out_c, out_k, out_d

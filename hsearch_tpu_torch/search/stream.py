@@ -388,7 +388,8 @@ def search_segmented(sidx: SegmentedIVF, centers: np.ndarray,
     buffered (see the module docstring).  ``stats_out`` receives the
     summed overflow counts, ``max_alive``, ``segments``,
     ``resident_fraction``, the per-segment search walls ``seg_walls_s``,
-    the summed ``d2h_bytes`` and ``h2d_bytes`` of the segments' searches
+    the summed ``d2h_bytes``, ``h2d_bytes``, ``host_d2_hits`` and
+    ``host_d2_native_hits`` of the segments' searches
     (``h2d_bytes`` with each streamed segment's upload) and, while a
     ``torch.profiler`` trace records on a CUDA device, ``upload_wait_ms``:
     the device time the current stream stalled on the uploads, from CUDA
@@ -465,7 +466,7 @@ def search_segmented(sidx: SegmentedIVF, centers: np.ndarray,
     dd = np.concatenate(out_d) if out_d else np.empty(0, np.float32)
     if stats_out is not None:
         for k in ("over_blocks", "over_hits", "retried", "d2h_bytes",
-                  "h2d_bytes"):
+                  "h2d_bytes", "host_d2_hits", "host_d2_native_hits"):
             stats_out[k] = sum(s.get(k, 0) for s in seg_stats)
         stats_out["h2d_bytes"] += uploaded
         stats_out["max_alive"] = max(

@@ -17,9 +17,10 @@ import torch
 from hsearch_tpu.search import exact as jexact
 from hsearch_tpu.search import ivf as jivf
 from hsearch_tpu.utils import checkpoint as jckpt
+from hsearch_tpu_torch import native_ext
 from hsearch_tpu_torch.core import embedding
 from hsearch_tpu_torch.ops import cuda_kernels as ck
-from hsearch_tpu_torch.search import exact, ivf
+from hsearch_tpu_torch.search import exact, ivf, stream
 from hsearch_tpu_torch.utils import checkpoint
 
 T = torch.as_tensor
@@ -214,6 +215,72 @@ def test_transfer_d2_off_matches_on(rng):
     with pytest.raises(ValueError, match="transfer_d2"):
         ivf.search(idx, embedding.embed_kmers(centers), 35.0,
                    transfer_d2=False, **kw)
+
+
+def test_host_d2_native_pass_equals_numpy_twin(rng, monkeypatch):
+    """The host d2 through the library's pass and through its numpy twin
+    (patched in for the pass): bitwise-equal results, the retry's hits
+    counted too."""
+    db, centers = _family_db(rng, 4096, 24, 25)
+    idx = ivf.build_index(db, torch.Generator().manual_seed(0),
+                          block_size=8, device="cpu")
+    kw = dict(k_blocks=4, max_hits=64, center_block=16)
+    native_ext.reset_calls()
+    st_n: dict = {}
+    native = ivf.search(idx, centers, 35.0, stats_out=st_n, **kw)
+    native_calls = native_ext.hit_sq_distance.calls
+    twin_hits = []
+
+    def twin_d2(*args):
+        twin_hits.append(len(args[1]))
+        return embedding.hit_sq_distance_np(*args)
+
+    monkeypatch.setattr(native_ext, "hit_sq_distance", twin_d2)
+    st_t: dict = {}
+    twin = ivf.search(idx, centers, 35.0, stats_out=st_t, **kw)
+    assert st_n["retried"] > 0 and len(native[0]) > 100
+    for a, b in zip(native, twin):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert st_n["host_d2_native_hits"] == st_n["host_d2_hits"] \
+        == st_t["host_d2_hits"] == sum(twin_hits) > len(native[0])
+    assert native_calls == len(twin_hits) > 1
+
+
+@pytest.mark.parametrize("transfer_d2", [False, True])
+def test_host_d2_hits_count_the_returned_hits(rng, transfer_d2):
+    db, centers = _family_db(rng, 2048, 24, 25)
+    idx = ivf.build_index(db, torch.Generator().manual_seed(0),
+                          block_size=32, device="cpu")
+    st: dict = {}
+    got = ivf.search(idx, centers, 35.0, k_blocks=16, max_hits=512,
+                     center_block=8, retry_overflow=False, stats_out=st,
+                     transfer_d2=transfer_d2)
+    assert len(got[0]) > 100
+    want = 0 if transfer_d2 else len(got[0])
+    assert st["host_d2_hits"] == st["host_d2_native_hits"] == want
+
+
+def test_segmented_sums_the_host_d2_counters(rng):
+    db, centers = _family_db(rng, 4096, 24, 25)
+    sidx = stream.build_segmented(db, torch.Generator().manual_seed(0),
+                                  segment_points=1024, block_size=16,
+                                  device="cpu")
+    st: dict = {}
+    got = stream.search_segmented(sidx, centers, 35.0, k_blocks=64,
+                                  max_hits=512, retry_overflow=False,
+                                  stats_out=st)
+    per_seg = []
+    for seg in sidx.segments:
+        one: dict = {}
+        ivf.search(stream.upload_segment(seg, "cpu"), centers, 35.0,
+                   k_blocks=64, max_hits=512, retry_overflow=False,
+                   stats_out=one)
+        per_seg.append(one)
+    assert st["segments"] == 4 and len(got[0]) > 100
+    for k in ("host_d2_hits", "host_d2_native_hits"):
+        assert st[k] == sum(s[k] for s in per_seg) == len(got[0])
+    assert min(s["host_d2_hits"] for s in per_seg) > 0
 
 
 def test_port_npz_loads_in_jax(rng, tmp_path):

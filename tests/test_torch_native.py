@@ -383,6 +383,143 @@ def test_brute_search_cpp_equal_loop_and_jax(rng):
     _eq(cki, ki[:7])
 
 
+# ---- IVF hit distances ----------------------------------------------------
+
+def _bits(a):
+    assert a.dtype == np.float32
+    return a.view(np.int32)
+
+
+@pytest.mark.parametrize("l", [1, 7, 8, 9, 10, 16, 25, 33])
+def test_hit_sq_distance_equal_twin(rng, l):
+    """2^20 random hits per length, below, at and past numpy's 8-wide
+    unroll, the table's first and last rows among them: bitwise equal."""
+    n, c, h = 4096, 1024, 1 << 20
+    kmers = rng.integers(0, 20, (n, l)).astype(np.int8)
+    centers = rng.integers(0, 20, (c, l)).astype(np.int8)
+    for lo in range(0, h, 1 << 18):
+        hc = rng.integers(0, c, 1 << 18)
+        hk = rng.integers(0, n, 1 << 18)
+        if lo == 0:
+            hc[:4], hk[:4] = [0, c - 1, 0, c - 1], [0, n - 1, n - 1, 0]
+        got = nat.hit_sq_distance(centers, hc, kmers, hk)
+        want = embedding.hit_sq_distance_np(centers, hc, kmers, hk)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+    # int32 centers of the same residues: the same bits
+    np.testing.assert_array_equal(
+        _bits(nat.hit_sq_distance(centers.astype(np.int32), hc, kmers, hk)),
+        _bits(want))
+
+
+@pytest.mark.parametrize("l", [7, 8, 9, 16, 25, 33, 200])
+def test_hit_sq_distance_sums_in_numpys_order(rng, l):
+    """On a table of +-2^60 entries beside ones below 1, which cancel, the
+    order of the float64 sum shows in the float32 result: the pass sums
+    in numpy's order (pairwise, not sequential from 8 terms on) at every
+    length."""
+    dsq = np.where(rng.random((20, 20)) < 0.3,
+                   rng.choice([-1.0, 1.0], (20, 20)) * 2.0 ** 60,
+                   rng.random((20, 20)))
+    kmers = rng.integers(0, 20, (512, l)).astype(np.int8)
+    centers = rng.integers(0, 20, (64, l)).astype(np.int8)
+    hc, hk = rng.integers(0, 64, 4096), rng.integers(0, 512, 4096)
+    out = np.empty(4096, np.float32)
+    assert nat._load().hs_hit_sq_distance(
+        centers, 64, kmers, 512, l, hc, hk, 4096, dsq, out) == 0
+    terms = dsq[centers[hc], kmers[hk]]
+    want = terms.sum(axis=1, dtype=np.float64).astype(np.float32)
+    np.testing.assert_array_equal(_bits(out), _bits(want))
+    sequential = np.zeros(4096)
+    for j in range(l):
+        sequential += terms[:, j]
+    # below 8 terms numpy's order is the sequential one; from 8 on it is not
+    differ = (sequential.astype(np.float32) != want).mean()
+    assert differ == 0 if l < 8 else differ > 0.01
+
+
+def test_hit_sq_distance_every_residue_pair():
+    """All 400 residue pairs at L = 25, as constant rows and as rows whose
+    residue turns with the position: bitwise the twin, and the table's
+    sums."""
+    l = 25
+    pos = np.arange(l)
+    for step in (0, 7):
+        rows = ((np.arange(20)[:, None] + step * pos) % 20).astype(np.int8)
+        hc, hk = np.divmod(np.arange(400), 20)
+        got = nat.hit_sq_distance(rows, hc, rows[::-1].copy(), hk)
+        want = embedding.hit_sq_distance_np(rows, hc, rows[::-1].copy(), hk)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+        ref = embedding.DISTANCE_SQUARE[rows[hc], rows[::-1][hk]].sum(1)
+        np.testing.assert_allclose(got, ref, rtol=1e-6)
+
+
+def test_hit_sq_distance_no_hits_and_bad_input(rng):
+    kmers = rng.integers(0, 20, (64, 25)).astype(np.int8)
+    centers = kmers[:8]
+    none = np.zeros(0, np.int64)
+    for fn in (nat.hit_sq_distance, embedding.hit_sq_distance_np):
+        out = fn(centers, none, kmers, none)
+        assert out.dtype == np.float32 and out.shape == (0,)
+    # the table is read in place: a copy is never made
+    for table in (kmers[::2], np.asfortranarray(kmers),
+                  kmers.astype(np.int32), kmers.astype(np.uint8)):
+        with pytest.raises(ValueError, match="C-contiguous int8"):
+            nat.hit_sq_distance(centers, none, table, none)
+    one = np.zeros(1, np.int64)
+    with pytest.raises(ValueError, match="outside"):
+        nat.hit_sq_distance(centers, one, kmers, one + 64)
+    with pytest.raises(ValueError, match="outside"):
+        nat.hit_sq_distance(centers, one + 8, kmers, one)
+    bad = kmers.copy()
+    bad[0, 3] = 20
+    with pytest.raises(ValueError, match="outside"):
+        nat.hit_sq_distance(centers, one, bad, one)
+    bad[0, 3] = -1
+    with pytest.raises(ValueError, match="outside"):
+        nat.hit_sq_distance(centers, one, bad, one)
+    with pytest.raises(ValueError, match="0..19"):
+        nat.hit_sq_distance(centers.astype(np.int32) + 1, one, kmers, one)
+
+
+def test_ivf_build_holds_a_table_the_pass_reads(rng):
+    """``build_index`` keeps ``host_kmers`` C-contiguous int8 whatever
+    the layout and integer type of its input, so the pass reads it in
+    place: strided, Fortran-order and int32 databases search to the same
+    bits through the library; an index carrying a table the pass cannot
+    read raises rather than copy it."""
+    from hsearch_tpu_torch.search import ivf
+    fam = rng.integers(0, 20, (64, 25), dtype=np.int32)
+    db = fam[rng.integers(0, 64, 2048)]
+    flips = rng.random(db.shape) < 0.08
+    db[flips] = rng.integers(0, 20, int(flips.sum()))
+    wide = np.zeros((2048, 50), np.int8)
+    wide[:, ::2] = db
+    centers = fam[:16]
+    kw = dict(k_blocks=16, max_hits=512, retry_overflow=False)
+    runs = []
+    for table in (db.astype(np.int8), wide[:, ::2], np.asfortranarray(db),
+                  db):
+        idx = ivf.build_index(table, torch.Generator().manual_seed(0),
+                              block_size=32, device="cpu")
+        km = idx.host_kmers
+        assert km.dtype == np.int8 and km.flags.c_contiguous
+        np.testing.assert_array_equal(km, db)
+        st: dict = {}
+        runs.append((ivf.search(idx, centers, 35.0, stats_out=st, **kw),
+                     st))
+    (want, st0), *others = runs
+    assert len(want[0]) > 100
+    assert st0["host_d2_native_hits"] == st0["host_d2_hits"] == len(want[0])
+    for got, st in others:
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        assert st == st0
+    bad = dataclasses.replace(idx, host_kmers=np.asfortranarray(km))
+    with pytest.raises(ValueError, match="C-contiguous int8"):
+        ivf.search(bad, centers, 35.0, **kw)
+
+
 # ---- threads, build, counters ---------------------------------------------
 
 def test_set_threads_and_default_process_threads():
@@ -440,7 +577,7 @@ def test_call_counters():
         "parse_fasta_bytes", "suffix_array", "union_find_labels",
         "brute_search_cpp", "align_gapped", "seed_codes",
         "searchsorted_right", "argsort_u64", "argsort_u32", "pair_prep",
-        "probe_sorted"}
+        "probe_sorted", "hit_sq_distance"}
 
 
 # ---- end to end -------------------------------------------------------------

@@ -111,9 +111,10 @@ def test_jax_checkpoint_capped_kb_identical_hits(jax_seg):
     assert _pairs(got) == _pairs(want)
     assert len(got[0]) > 50
     # JAX's search statistics, its upload times replaced by the
-    # ``stream.upload`` span, with the bytes copied each way
-    assert set(st) == set(jst) - {"upload_dispatch_s"} | {"d2h_bytes",
-                                                          "h2d_bytes"}
+    # ``stream.upload`` span, with the bytes copied each way and the hits
+    # whose d2 the host recomputed
+    assert set(st) == set(jst) - {"upload_dispatch_s"} | {
+        "d2h_bytes", "h2d_bytes", "host_d2_hits", "host_d2_native_hits"}
 
 
 def test_port_checkpoint_loads_in_jax(jax_seg, port_seg, tmp_path):
