@@ -779,9 +779,9 @@ def run(device, n_log2=N_LOG2, n_centers=C, center_block=CENTER_BLOCK,
                              cand_max=cm_t, device=dev)
     lc = min(cfg_t.center_block, centers.shape[0])
     lcen = torch.as_tensor(centers[:lc], device=dev)
-    lids, _ = motif._candidates(
+    lids = motif._candidates(
         lidx, motif._query_codes(lidx, lcen, True, cfg_t.probes),
-        lidx.cand_max)
+        lidx.cand_max)[0]
     lneg = torch.where(lids < lidx.num_points, 0.0, float("inf"))
     lr2 = float(np.float32(RADIUS * RADIUS))
     largs = (_center_ptables(lcen, L), lidx.db_kmers, lidx.order, lids,

@@ -239,7 +239,7 @@ def search(index: ShardedMotifIndex, centers: np.ndarray,
     def per_shard(s, j, cblk):
         qcodes = motif._query_codes(s, cblk, is_kmers, index.probes)
         return motif._probe_verify_hits(s, cblk, qcodes, r2, index.cand_max,
-                                        index.max_hits, index.n_real[j])
+                                        index.max_hits, index.n_real[j])[:4]
 
     arr = centers.astype(np.int32 if is_kmers else np.float32)
     ci, ki, dd, (n_hits, n_dropped) = _search_sharded(

@@ -30,6 +30,7 @@ from .. import _device
 from ..core import embedding
 from ..lsh import pstable
 from ..ops import compact, cuda_kernels, distance, segment
+from ..utils import host_heap, profiling
 
 
 def _check_kmers(kmers: np.ndarray, what: str) -> None:
@@ -43,7 +44,15 @@ def _check_kmers(kmers: np.ndarray, what: str) -> None:
 @dataclasses.dataclass(frozen=True)
 class MotifSearchConfig:
     """Operating point; defaults follow the reference
-    (motif_both_points.cpp: hash_K = hash_L = 4, W = 50, R = 200)."""
+    (motif_both_points.cpp: hash_K = hash_L = 4, W = 50, R = 200).
+
+    A search's candidate path holds (center_block, hash_l * probes *
+    cand_max) slots per center block, several int64 and float32 tensors
+    of that shape at once: ``center_block`` bounds its device memory.
+    ``search`` reports its counters (``truncated``, ``skewed``,
+    ``cand_slots``, ``cand_distinct``, ``d2h_bytes``) into ``stats_out``
+    and names its steps as the ``lsh.*`` spans of a recording trace.
+    """
 
     hash_k: int = 4
     hash_l: int = 4
@@ -179,14 +188,17 @@ def _candidates(index: MotifIndex, qcodes: torch.Tensor, cand_max: int):
     """Probe all tables, gather up to cand_max ids per bucket, dedup.
 
     Returns (ids (C, M) int64 with sentinel N, n_dropped (C,) int32: the
-    candidates each center lost to cand_max, its observable bucket skew).
+    candidates each center lost to cand_max, its observable bucket skew,
+    n_slots (C,) int32: the slots it gathered, duplicates included).
     """
     start, count = segment.probe(index.tables, qcodes)
     over = torch.clamp_min(count - cand_max, 0)
     n_dropped = over.reshape(over.shape[0], -1).sum(dim=1).to(torch.int32)
     count = torch.clamp_max(count, cand_max)
+    n_slots = count.reshape(count.shape[0], -1).sum(dim=1).to(torch.int32)
     ids = segment.gather_candidates(index.tables, start, count, cand_max)
-    return segment.dedup_sorted(ids, sentinel=index.num_points), n_dropped
+    return (segment.dedup_sorted(ids, sentinel=index.num_points), n_dropped,
+            n_slots)
 
 
 def _probe_verify_hits(index: MotifIndex, centers: torch.Tensor,
@@ -196,22 +208,30 @@ def _probe_verify_hits(index: MotifIndex, centers: torch.Tensor,
     center's nearest ``max_hits`` hits.
 
     Returns (ids (C, k) int64 sentinel-N, d2 (C, k), n_hits (C,),
-    n_dropped (C,)).  ``n_real`` (default: every row) bounds the rows
-    that may be hits: a database shard's zero-filled padding rows lie at
-    its tail, at ids n_real .. N-1.  Nothing here waits for the device.
+    n_dropped (C,), n_slots (C,), n_distinct (C,)): the last two are the
+    candidate slots each center gathered and the distinct database ids
+    the verify read for it.  ``n_real`` (default: every row)
+    bounds the rows that may be hits: a database shard's zero-filled
+    padding rows lie at its tail, at ids n_real .. N-1.  Nothing here
+    waits for the device.
     """
     n = index.num_points
-    ids, n_dropped = _candidates(index, qcodes, cand_max)
-    # the verify kernel at block size 1: a dead "block" is a sentinel id
-    neg = torch.where(ids < n, 0.0, float("inf"))
-    ptab = _center_ptables(centers, index.kmer_len)
-    d2m, n_hits = cuda_kernels.ptable_verify(
-        ptab, index.db_kmers, index.order, ids, neg, r2,
-        n if n_real is None else n_real)
-    negd, sel = torch.topk(-d2m, min(max_hits, d2m.shape[1]), dim=1)
-    found = torch.isfinite(negd)
-    hit_ids = torch.where(found, torch.gather(ids, 1, sel), n)
-    return hit_ids, -negd, n_hits, n_dropped
+    with profiling.span("lsh.candidates"):
+        ids, n_dropped, n_slots = _candidates(index, qcodes, cand_max)
+    with profiling.span("lsh.verify"):
+        # the verify kernel at block size 1: a dead "block" is a sentinel id
+        alive = ids < n
+        neg = torch.where(alive, 0.0, float("inf"))
+        ptab = _center_ptables(centers, index.kmer_len)
+        d2m, n_hits = cuda_kernels.ptable_verify(
+            ptab, index.db_kmers, index.order, ids, neg, r2,
+            n if n_real is None else n_real)
+    with profiling.span("lsh.top_hits"):
+        negd, sel = torch.topk(-d2m, min(max_hits, d2m.shape[1]), dim=1)
+        found = torch.isfinite(negd)
+        hit_ids = torch.where(found, torch.gather(ids, 1, sel), n)
+    n_distinct = alive.sum(dim=1).to(torch.int32)
+    return hit_ids, -negd, n_hits, n_dropped, n_slots, n_distinct
 
 
 def _probe_verify(index: MotifIndex, centers: torch.Tensor,
@@ -219,12 +239,13 @@ def _probe_verify(index: MotifIndex, centers: torch.Tensor,
                   max_hits: int = 256):
     """``_probe_verify_hits`` and the packed transfer: returns (packed
     flat int32 buffer in the ops/compact layout with meta = [n_hits (C),
-    n_dropped (C)]; ids (C, k) sentinel-N and d2 (C, k), the lossless
-    fallback on packed-capacity overflow)."""
-    hit_ids, hit_d2, n_hits, n_dropped = _probe_verify_hits(
+    n_dropped (C), n_slots (C), n_distinct (C)]; ids (C, k) sentinel-N
+    and d2 (C, k), the lossless fallback on packed-capacity overflow)."""
+    hit_ids, hit_d2, *metas = _probe_verify_hits(
         index, centers, qcodes, r2, cand_max, max_hits)
-    packed = compact.pack_hits(hit_ids, hit_d2, index.num_points,
-                               meta_vecs=(n_hits, n_dropped))
+    with profiling.span("lsh.pack"):
+        packed = compact.pack_hits(hit_ids, hit_d2, index.num_points,
+                                   meta_vecs=tuple(metas))
     return packed, hit_ids, hit_d2
 
 
@@ -263,6 +284,7 @@ def search_protein_db(db, centers: np.ndarray, generator: torch.Generator,
     return best_center, best_dist, positions
 
 
+@profiling.spanned("lsh.search")
 def search(index: MotifIndex, centers: np.ndarray,
            config: MotifSearchConfig = MotifSearchConfig(),
            stats_out: dict | None = None):
@@ -274,7 +296,24 @@ def search(index: MotifIndex, centers: np.ndarray,
     ``max_hits`` (nearest kept) or whose probed buckets exceed cand_max
     (candidates truncated) are counted: into ``stats_out`` as
     ``truncated`` / ``skewed`` when given, else as warnings.
+
+    ``stats_out`` also receives, over the real (unpadded) centers,
+    ``cand_slots`` (candidate slots gathered from the probed buckets,
+    duplicates included), ``cand_distinct`` (distinct database ids the
+    verify read) and ``d2h_bytes`` (every buffer read back: the packed
+    buffers, the full fallback buffers); the first two ride in the packed
+    buffer's meta, so counting adds no device synchronisation.  In a
+    recording ``torch.profiler`` trace the call is the span
+    ``lsh.search``: ``lsh.centers`` (padding and upload), per center
+    block ``lsh.block`` (``lsh.codes``, ``lsh.candidates``,
+    ``lsh.verify``, ``lsh.top_hits``, ``lsh.pack``), then per block
+    ``lsh.d2h``, ``lsh.unpack`` (or ``lsh.fallback``).
+
+    The first call holds glibc's heap thresholds for the process
+    (``utils/host_heap.hold``): each call frees and allocates a few MB of
+    hit arrays, which the adaptive defaults would fault in anew per call.
     """
+    host_heap.hold()
     centers = np.asarray(centers)
     is_kmers = np.issubdtype(centers.dtype, np.integer)
     if is_kmers:
@@ -285,47 +324,59 @@ def search(index: MotifIndex, centers: np.ndarray,
     cb = config.center_block
     n = index.num_points
     c_total = centers.shape[0]
-    # pad to whole center blocks and upload once: a host->device copy in
-    # the dispatch loop would wait for the blocks already queued
-    pad_total = (-c_total) % cb
-    cpad = np.pad(centers.astype(np.int32 if is_kmers else np.float32),
-                  ((0, pad_total),) + ((0, 0),) * (centers.ndim - 1))
-    cdev = torch.as_tensor(cpad, device=dev)
+    with profiling.span("lsh.centers"):
+        # pad to whole center blocks and upload once: a host->device copy
+        # in the dispatch loop would wait for the blocks already queued
+        pad_total = (-c_total) % cb
+        cpad = np.pad(centers.astype(np.int32 if is_kmers else np.float32),
+                      ((0, pad_total),) + ((0, 0),) * (centers.ndim - 1))
+        cdev = torch.as_tensor(cpad, device=dev)
     ci_all, ki_all, dd_all = [], [], []
-    truncated = skewed = 0
+    truncated = skewed = cand_slots = cand_distinct = d2h_bytes = 0
     # two passes: queue every center block, then harvest, so block i's
     # device->host copy overlaps the device work of the later blocks
     pending = []
     for s in range(0, c_total, cb):
-        cblk = cdev[s:s + cb]
-        qcodes = _query_codes(index, cblk, is_kmers, config.probes)
-        pending.append((s, min(cb, c_total - s), _probe_verify(
-            index, cblk, qcodes, r2, index.cand_max, config.max_hits)))
+        with profiling.span("lsh.block"):
+            cblk = cdev[s:s + cb]
+            with profiling.span("lsh.codes"):
+                qcodes = _query_codes(index, cblk, is_kmers, config.probes)
+            pending.append((s, min(cb, c_total - s), _probe_verify(
+                index, cblk, qcodes, r2, index.cand_max, config.max_hits)))
     for s, real, (packed, hit_ids, d2) in pending:
-        hits, (n_hits, n_dropped) = compact.unpack_hits(
-            packed.cpu().numpy(), (cb, cb))
-        truncated += int((n_hits[:real] > config.max_hits).sum())
-        skewed += int((n_dropped[:real] > 0).sum())
-        if hits is not None:
-            hc0, hk0, hd0 = hits
-            keep = hc0 < real                  # drop padding-center rows
-            hc = hc0[keep].astype(np.int64)
-            hk = hk0[keep].astype(np.int64)
-            hd = hd0[keep]
-        else:
+        with profiling.span("lsh.d2h"):
+            packed_np = packed.cpu().numpy()
+        d2h_bytes += packed_np.nbytes
+        with profiling.span("lsh.unpack"):
+            hits, (n_hits, n_dropped, n_slots, n_distinct) = \
+                compact.unpack_hits(packed_np, (cb,) * 4)
+            truncated += int((n_hits[:real] > config.max_hits).sum())
+            skewed += int((n_dropped[:real] > 0).sum())
+            cand_slots += int(n_slots[:real].sum(dtype=np.int64))
+            cand_distinct += int(n_distinct[:real].sum(dtype=np.int64))
+            if hits is not None:
+                hc0, hk0, hd0 = hits
+                keep = hc0 < real              # drop padding-center rows
+                hc = hc0[keep].astype(np.int64)
+                hk = hk0[keep].astype(np.int64)
+                hd = hd0[keep]
+        if hits is None:
             # packed capacity overflowed: the full buffers transfer now
-            idsh = hit_ids.cpu().numpy().copy()
-            d2h = d2.cpu().numpy()
-            idsh[real:, :] = n
-            hc, hm = np.nonzero(idsh < n)
-            hk = idsh[hc, hm].astype(np.int64)
-            hd = d2h[hc, hm]
+            with profiling.span("lsh.fallback"):
+                idsh = hit_ids.cpu().numpy().copy()
+                d2h = d2.cpu().numpy()
+                d2h_bytes += idsh.nbytes + d2h.nbytes
+                idsh[real:, :] = n
+                hc, hm = np.nonzero(idsh < n)
+                hk = idsh[hc, hm].astype(np.int64)
+                hd = d2h[hc, hm]
         ci_all.append(hc + s)
         ki_all.append(hk)
         dd_all.append(np.sqrt(np.maximum(hd, 0.0)))
     if stats_out is not None:
-        stats_out["truncated"] = truncated
-        stats_out["skewed"] = skewed
+        stats_out.update(truncated=truncated, skewed=skewed,
+                         cand_slots=cand_slots, cand_distinct=cand_distinct,
+                         d2h_bytes=d2h_bytes)
     else:
         if truncated:
             warnings.warn(

@@ -160,6 +160,12 @@ def _pairs(ci, ki):
     return set(zip(ci.tolist(), ki.tolist()))
 
 
+def _overflow(stats):
+    """The two overflow counts that both packages report; the port's
+    ``stats_out`` also holds its candidate and transfer counters."""
+    return {k: stats[k] for k in ("truncated", "skewed")}
+
+
 def _search_both(jidx, tidx, centers, cfg):
     with warnings.catch_warnings(record=True) as wj:
         warnings.simplefilter("always")
@@ -198,7 +204,8 @@ def test_search_equals_jax_on_jax_index(tmp_path, rng, case):
     _query_codes(jidx, tidx, centers, not points, probes)
     (ci, ki, dd), (wci, wki, wdd), stats, _ = _search_both(
         jidx, tidx, centers, tcfg)
-    assert len(wci) > 50 and stats == {"truncated": 0, "skewed": 0}
+    assert len(wci) > 50 and _overflow(stats) == {"truncated": 0,
+                                                  "skewed": 0}
     assert _pairs(ci, ki) == _pairs(wci, wki)
     got = dict(zip(zip(ci.tolist(), ki.tolist()), dd.astype(np.float64)))
     want = np.array([got[p] for p in zip(wci.tolist(), wki.tolist())])
@@ -236,8 +243,8 @@ def test_truncation_and_overflow_match_jax(tmp_path, rng):
     assert (jd > 0).sum() >= 4 and (jn > 24).sum() >= 1
     (ci, ki, _), (wci, wki, _), stats, msgs = _search_both(
         jidx, tidx, centers, tcfg)
-    assert stats == {"truncated": int((jn > 24).sum()),
-                     "skewed": int((jd > 0).sum())}
+    assert _overflow(stats) == {"truncated": int((jn > 24).sum()),
+                                "skewed": int((jd > 0).sum())}
     assert any("max_hits" in m for m in msgs) and \
         any("cand_max" in m for m in msgs)
     ok = np.nonzero(jn <= 24)[0]
