@@ -43,7 +43,8 @@ their C entries.
 Each wrapper takes its plain PyTorch version when its tensors lie on the
 CPU, and launches its kernel (or raises) when they lie on a CUDA device.
 ``launches`` on each wrapper counts the kernel launches, so a run can show
-that it went through the kernels.
+that it went through the kernels; a CUDA graph's replay adds the launches
+its capture recorded (``count_launches``).
 """
 
 from __future__ import annotations
@@ -810,3 +811,10 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def count_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` to the kernels' launch counts: the launches of a
+    CUDA graph's replay, which no wrapper sees (``ivf._graphed_block``)."""
+    for name, k in counts.items():
+        KERNELS[name].launches += k

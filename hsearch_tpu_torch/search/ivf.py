@@ -30,6 +30,7 @@ same index on the CPU and on the card.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import os
@@ -384,6 +385,82 @@ def _cascade_top_blocks(key: torch.Tensor, gmin: torch.Tensor, kb: int,
 _SELECT_GROUP = cuda_kernels.PRUNE_GROUP
 
 
+def _block_steps(index: IVFIndex, r: np.float32, k_blocks: int,
+                 max_hits: int, approx_select: bool,
+                 cap_frac: int | None = None, with_d2: bool = True):
+    """One center block's device chain as (span, step) pairs, in order.
+
+    A step reads its inputs from the dict it is given and stores its
+    outputs there, dropping the inputs no later step reads: ``centers``
+    (C, L) int or (C, 8L) f32 and ``emb`` (C, 8L) f32 go in; ``ids`` (C, k)
+    int32 sentinel-N, ``d2`` (C, k) f32, ``n_hits`` (C,) and ``n_alive``
+    (C,) come out, k = min(max_hits, kb * bs), and with ``cap_frac`` the
+    ``pack`` step folds the last two into ``packed``.  No step
+    synchronises the host, and every shape is fixed by the index, C, kb,
+    ``max_hits`` and ``cap_frac``, so the steps can run eagerly or be
+    captured as CUDA graphs (``_search_block``).
+    """
+    n = index.n_points
+    bs = index.block_size
+    b = index.num_blocks
+    kb = min(k_blocks, b)
+    # the steps read the index's tensors, never the index: a graph cache
+    # held by the index must not hold the index
+    cent, rad = index.block_centroid, index.block_radius
+    db_sorted, order, kmer_len = index.db_sorted, index.order, index.kmer_len
+
+    def prune(v):
+        v["key"], v["gmin"], v["n_alive"] = cuda_kernels.sq_distance_prune(
+            v["emb"], cent, rad, float(r))
+
+    def select(v):
+        key, gmin = v.pop("key"), v.pop("gmin")
+        if b >= 4 * _SELECT_GROUP:
+            v["neg"], v["blk_ids"] = _cascade_top_blocks(key, gmin, kb,
+                                                         approx_select)
+        else:
+            v["neg"], v["blk_ids"] = _select_nearest(key[:, :b], kb,
+                                                     approx_select)
+
+    def verify(v):
+        ptab = _center_ptables(v["centers"], kmer_len)
+        # r is float32 and squared in float32, as the JAX package does
+        v["d2m"], v["n_hits"] = cuda_kernels.ptable_verify(
+            ptab, db_sorted, order, v["blk_ids"], v.pop("neg"),
+            float(r * r), n)
+
+    def top_hits(v):
+        d2m, blk_ids = v.pop("d2m"), v.pop("blk_ids")
+        negd, sel = torch.topk(-d2m, min(max_hits, d2m.shape[1]), dim=1)
+        found = torch.isfinite(negd)
+        # the hit's id: row sel % bs of the selected block sel // bs
+        slot = torch.gather(blk_ids, 1, sel // bs) * bs + sel % bs
+        v["ids"] = torch.where(
+            found, order.view(-1)[torch.where(found, slot, 0)],
+            torch.full_like(sel, n, dtype=order.dtype))
+        v["d2"] = -negd
+
+    def pack(v):
+        v["packed"] = compact.pack_hits(
+            v["ids"], v["d2"], n, meta_vecs=(v.pop("n_hits"),
+                                             v.pop("n_alive")),
+            cap_frac=cap_frac, with_d2=with_d2)
+
+    steps = [("ivf.prune", prune), ("ivf.select", select),
+             ("ivf.verify", verify), ("ivf.top_hits", top_hits)]
+    if cap_frac is not None:
+        steps.append(("ivf.pack", pack))
+    return steps
+
+
+def _run_steps(steps, v: dict) -> dict:
+    """Run ``_block_steps`` eagerly, each in its span."""
+    for name, step in steps:
+        with profiling.span(name):
+            step(v)
+    return v
+
+
 def _search_block_hits(index: IVFIndex, centers: torch.Tensor,
                        centers_emb: torch.Tensor, r: np.float32,
                        k_blocks: int, max_hits: int,
@@ -397,52 +474,161 @@ def _search_block_hits(index: IVFIndex, centers: torch.Tensor,
     n_alive (C,)), k = min(max_hits, kb * bs).  Every step is queued on
     the device without a host synchronisation.
     """
-    n = index.n_points
-    bs = index.block_size
-    b = index.num_blocks
-    with profiling.span("ivf.prune"):
-        key, gmin, n_alive = cuda_kernels.sq_distance_prune(
-            centers_emb, index.block_centroid, index.block_radius, float(r))
-    kb = min(k_blocks, b)
-    with profiling.span("ivf.select"):
-        if b >= 4 * _SELECT_GROUP:
-            neg, blk_ids = _cascade_top_blocks(key, gmin, kb, approx_select)
-        else:
-            neg, blk_ids = _select_nearest(key[:, :b], kb, approx_select)
-    with profiling.span("ivf.verify"):
-        ptab = _center_ptables(centers, index.kmer_len)
-        # r is float32 and squared in float32, as the JAX package does
-        d2m, n_hits = cuda_kernels.ptable_verify(
-            ptab, index.db_sorted, index.order, blk_ids, neg, float(r * r),
-            n)
-    with profiling.span("ivf.top_hits"):
-        negd, sel = torch.topk(-d2m, min(max_hits, d2m.shape[1]), dim=1)
-        found = torch.isfinite(negd)
-        # the hit's id: row sel % bs of the selected block sel // bs
-        slot = torch.gather(blk_ids, 1, sel // bs) * bs + sel % bs
-        out_ids = torch.where(
-            found, index.order.view(-1)[torch.where(found, slot, 0)],
-            torch.full_like(sel, n, dtype=index.order.dtype))
-    return out_ids, -negd, n_hits, n_alive
+    v = _run_steps(_block_steps(index, r, k_blocks, max_hits, approx_select),
+                   {"centers": centers, "emb": centers_emb})
+    return v["ids"], v["d2"], v["n_hits"], v["n_alive"]
 
 
 def _search_block(index: IVFIndex, centers: torch.Tensor,
                   centers_emb: torch.Tensor, r: np.float32, k_blocks: int,
                   max_hits: int, cap_frac: int = 4, with_d2: bool = True,
                   approx_select: bool = False):
-    """``_search_block_hits`` and the packed transfer: returns (packed flat
-    int32 buffer — ops/compact layout with meta = [n_hits (C),
+    """The block's chain with the packed transfer, queued eagerly: returns
+    (packed flat int32 buffer — ops/compact layout with meta = [n_hits (C),
     n_alive (C)]; ids (C, max_hits) sentinel-N and d2 (C, max_hits) as
     the lossless overflow fallback)."""
     with profiling.span("ivf.block"):
-        out_ids, out_d2, n_hits, n_alive = _search_block_hits(
-            index, centers, centers_emb, r, k_blocks, max_hits,
-            approx_select)
-        with profiling.span("ivf.pack"):
-            packed = compact.pack_hits(out_ids, out_d2, index.n_points,
-                                       meta_vecs=(n_hits, n_alive),
-                                       cap_frac=cap_frac, with_d2=with_d2)
-    return packed, out_ids, out_d2
+        v = _run_steps(_block_steps(index, r, k_blocks, max_hits,
+                                    approx_select, cap_frac, with_d2),
+                       {"centers": centers, "emb": centers_emb})
+    return v["packed"], v["ids"], v["d2"]
+
+
+def _capture_cuda(steps, v: dict, dev: torch.device) -> list:
+    """Capture each step as its own CUDA graph, all in one private memory
+    pool (``torch.cuda.graph`` captures on a side stream, after handing
+    back the memory the caching allocator holds unallocated).  Capturing
+    queues nothing; the graphs read ``v``'s tensors at their addresses and
+    write the tensors the steps leave in ``v``.  Returns (span, replay)
+    pairs; the replays run on the current stream, in order.
+    """
+    pool = torch.cuda.graph_pool_handle()
+    replays = []
+    with torch.cuda.device(dev):
+        for name, step in steps:
+            g = torch.cuda.CUDAGraph()
+            with profiling.span(name), torch.cuda.graph(g, pool=pool):
+                step(v)
+            replays.append((name, g.replay))
+    return replays
+
+
+# how a center block's device chain is captured, by device type; a device
+# without an entry runs the chain eagerly
+_CAPTURE = {"cuda": _capture_cuda}
+
+# graph keys an index keeps, the most recently used: each captured key
+# holds one block's working memory in its pool, which goes with the key
+_GRAPH_KEYS = 2
+
+
+class _BlockGraphs:
+    """One graph key's state in an index's cache: the calls seen, and
+    after the capture the static tensors, the per-span replays (empty
+    where the capture ran out of memory) and the kernel launches one
+    replay makes."""
+
+    def __init__(self):
+        self.calls = 0
+        self.v: dict = {}
+        self.replays: list | None = None
+        self.launches: dict = {}
+
+
+def keep_eager(index: IVFIndex) -> IVFIndex:
+    """Have ``index`` run every center block eagerly and hold no CUDA
+    graphs: for an index whose device memory a budget plans without a
+    graph pool (``stream``'s segments)."""
+    vars(index)["_block_graphs"] = None
+    return index
+
+
+def _graph_entry(index: IVFIndex, key: tuple) -> _BlockGraphs | None:
+    """``key``'s entry in the index's cache, its call counted, or None for
+    an index kept eager.  The cache holds the ``_GRAPH_KEYS`` keys used
+    last and drops older ones with their graphs and pool."""
+    cache = vars(index).setdefault("_block_graphs",
+                                   collections.OrderedDict())
+    if cache is None:
+        return None
+    entry = cache.pop(key, None) or _BlockGraphs()
+    cache[key] = entry
+    if len(cache) > _GRAPH_KEYS:
+        cache.popitem(last=False)
+    entry.calls += 1
+    return entry
+
+
+def _capture_block(entry: _BlockGraphs, capture, steps,
+                   centers: torch.Tensor, centers_emb: torch.Tensor) -> None:
+    """Capture ``steps`` into ``entry`` with copies of the block's centers
+    as the graphs' inputs.  Capturing launches nothing: what the wrappers
+    count meanwhile is what each replay launches, and comes off their
+    counts again, whether or not the capture completes.  A capture the
+    card has no memory for leaves the key eager (``replays`` empty)."""
+    v = entry.v
+    v.update(centers=centers.clone(), emb=centers_emb.clone())
+    before = cuda_kernels.launch_counts()
+    try:
+        entry.replays = capture(steps, v, centers.device)
+    except torch.OutOfMemoryError:
+        entry.replays = []
+        v.clear()
+    finally:
+        entry.launches = {k: c - before[k] for k, c in
+                          cuda_kernels.launch_counts().items()
+                          if c != before[k]}
+        cuda_kernels.count_launches(
+            {k: -c for k, c in entry.launches.items()})
+
+
+def _graphed_block(index: IVFIndex, centers: torch.Tensor,
+                   centers_emb: torch.Tensor, r: np.float32, k_blocks: int,
+                   max_hits: int, cap_frac: int, with_d2: bool,
+                   approx_select: bool, copy_out: bool = True):
+    """``_search_block``, replayed from CUDA graphs where the index has run
+    the block's shape before: returns its three outputs and how it ran
+    (None eagerly, "capture" or "replay").
+
+    On a device in ``_CAPTURE`` the chain is keyed by the center block's
+    shape and dtype, kb, ``max_hits``, ``cap_frac``, ``with_d2``, the
+    select flag and r, in a cache the index holds (and frees with it;
+    ``_graph_entry``).  The first call with a key runs eagerly, the second
+    captures the chain (one graph per span) and launches it, and later
+    calls copy the block into the graphs' input tensors and replay them.
+    The same kernels run in the same order, so the hits are those of the
+    eager chain, bit for bit.  A graph's outputs live in its memory, which
+    its next replay overwrites: ``copy_out`` copies them out, and a caller
+    that reads them before it queues the same key again may pass False.
+    The cache is not for use from several threads at once.
+    """
+    capture = _CAPTURE.get(centers.device.type)
+    entry = None if capture is None else _graph_entry(index, (
+        tuple(centers.shape), centers.dtype, min(k_blocks, index.num_blocks),
+        max_hits, cap_frac, with_d2, approx_select, float(r)))
+    if entry is not None and entry.calls > 1 and entry.replays != []:
+        with profiling.span("ivf.block"):
+            v = entry.v
+            if entry.replays is None:
+                how = "capture"
+                _capture_block(entry, capture, _block_steps(
+                    index, r, k_blocks, max_hits, approx_select, cap_frac,
+                    with_d2), centers, centers_emb)
+            else:
+                how = "replay"
+                v["centers"].copy_(centers)
+                v["emb"].copy_(centers_emb)
+            if entry.replays:
+                for name, replay in entry.replays:
+                    with profiling.span(name):
+                        replay()
+                cuda_kernels.count_launches(entry.launches)
+                out = v["packed"], v["ids"], v["d2"]
+                if copy_out:
+                    out = tuple(t.clone() for t in out)
+                return (*out, how)
+    return (*_search_block(index, centers, centers_emb, r, k_blocks,
+                           max_hits, cap_frac, with_d2, approx_select), None)
 
 
 def autotune_k_blocks(index: IVFIndex, sample_centers: np.ndarray,
@@ -549,8 +735,27 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
     ``h2d_bytes`` (the padded centers and their embedding),
     ``host_d2_hits`` (hits whose d2 the host recomputed) and
     ``host_d2_native_hits`` (of those, the hits the library's pass
-    recomputed: all of them, since the pass has no fallback), the retry's
-    included.  In a recording
+    recomputed: all of them, since the pass has no fallback),
+    ``graph_captures`` (center blocks whose device chain was captured as
+    CUDA graphs) and ``graph_replays`` (center blocks served by replaying
+    graphs captured before them), the retry's included.
+
+    On a CUDA index a center block's device chain (prune, select, verify,
+    top hits, packing) is replayed from CUDA graphs once the index has run
+    the same block shape twice: the third and every later center block
+    with the same center block size, kb, ``max_hits``, packed capacity,
+    d2 layout, select flag and float32 radius copies its centers into the
+    graphs' inputs and launches one graph per span (five) instead of
+    queueing each of the chain's kernels from Python; the second captures
+    them.  The graphs run the same kernels in the same order, so the hits
+    never change; an index searched with a shape only once never captures.
+    An index keeps the two shapes it used last, each holding one block's
+    working memory on the card, and frees an older shape's graphs (and all
+    of them with the index); a capture the card has no memory for leaves
+    its shape eager, and the segmented engine's segments always run
+    eagerly (``keep_eager``).  The rest of the call (read back,
+    unpacking, the host d2, a re-dispatch, the retry) runs as before.  A
+    CPU index always runs the chain eagerly.  In a recording
     ``torch.profiler`` trace the call is the span ``ivf.search``:
     ``ivf.centers``, per center block ``ivf.block``
     (``ivf.prune``, ``ivf.select``, ``ivf.verify``, ``ivf.top_hits``,
@@ -602,11 +807,17 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
     # two passes: queue every center block first, then harvest — block
     # i's device->host copy overlaps the device work of the later blocks
     pending = []
+    graph_runs: collections.Counter = collections.Counter()
     for s in range(0, c_total, center_block):
         real = min(center_block, c_total - s)
-        pending.append((s, real, _search_block(
+        # every block is harvested after the last one is queued: only the
+        # last may leave its outputs in a graph's memory
+        *block, how = _graphed_block(
             index, cdev[s:s + center_block], edev[s:s + center_block], r,
-            k_blocks, max_hits, pack_cap_frac, transfer_d2, approx)))
+            k_blocks, max_hits, pack_cap_frac, transfer_d2, approx,
+            copy_out=s + center_block < c_total)
+        graph_runs[how] += 1
+        pending.append((s, real, block))
     if after_dispatch is not None:
         after_dispatch()
     max_alive = 0
@@ -711,7 +922,11 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
                 h2d_bytes=h2d_bytes + sub_stats["h2d_bytes"],
                 host_d2_hits=host_d2_hits + sub_stats["host_d2_hits"],
                 host_d2_native_hits=host_d2_native
-                + sub_stats["host_d2_native_hits"])
+                + sub_stats["host_d2_native_hits"],
+                graph_captures=graph_runs["capture"]
+                + sub_stats["graph_captures"],
+                graph_replays=graph_runs["replay"]
+                + sub_stats["graph_replays"])
         return out_c, out_k, out_d
     elif (over_blocks or over_hits) and stats_out is None:
         if over_blocks:
@@ -733,4 +948,6 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
         stats_out["h2d_bytes"] = h2d_bytes
         stats_out["host_d2_hits"] = host_d2_hits
         stats_out["host_d2_native_hits"] = host_d2_native
+        stats_out["graph_captures"] = graph_runs["capture"]
+        stats_out["graph_replays"] = graph_runs["replay"]
     return out_c, out_k, out_d

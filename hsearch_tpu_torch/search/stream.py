@@ -388,8 +388,10 @@ def search_segmented(sidx: SegmentedIVF, centers: np.ndarray,
     buffered (see the module docstring).  ``stats_out`` receives the
     summed overflow counts, ``max_alive``, ``segments``,
     ``resident_fraction``, the per-segment search walls ``seg_walls_s``,
-    the summed ``d2h_bytes``, ``h2d_bytes``, ``host_d2_hits`` and
-    ``host_d2_native_hits`` of the segments' searches
+    the summed ``d2h_bytes``, ``h2d_bytes``, ``host_d2_hits``,
+    ``host_d2_native_hits``, ``graph_captures`` and ``graph_replays`` (0:
+    segments run their center blocks eagerly, ``ivf.keep_eager``) of
+    the segments' searches
     (``h2d_bytes`` with each streamed segment's upload) and, while a
     ``torch.profiler`` trace records on a CUDA device, ``upload_wait_ms``:
     the device time the current stream stalled on the uploads, from CUDA
@@ -449,11 +451,12 @@ def search_segmented(sidx: SegmentedIVF, centers: np.ndarray,
         st: dict = {}
         with profiling.span("stream.segment"):
             t0 = time.perf_counter()
+            # the residency budget plans no CUDA graph pool per segment
             ci, ki, dd = ivf.search(
-                cur, centers, radius, k_blocks=k_blocks, max_hits=max_hits,
-                center_block=center_block, retry_overflow=retry_overflow,
-                stats_out=st, pack_cap_frac=pack_cap_frac,
-                after_dispatch=queue_next)
+                ivf.keep_eager(cur), centers, radius, k_blocks=k_blocks,
+                max_hits=max_hits, center_block=center_block,
+                retry_overflow=retry_overflow, stats_out=st,
+                pack_cap_frac=pack_cap_frac, after_dispatch=queue_next)
             seg_walls.append(round(time.perf_counter() - t0, 3))
         pending = nxt[0] if nxt else None
         seg_stats.append(st)
@@ -466,7 +469,8 @@ def search_segmented(sidx: SegmentedIVF, centers: np.ndarray,
     dd = np.concatenate(out_d) if out_d else np.empty(0, np.float32)
     if stats_out is not None:
         for k in ("over_blocks", "over_hits", "retried", "d2h_bytes",
-                  "h2d_bytes", "host_d2_hits", "host_d2_native_hits"):
+                  "h2d_bytes", "host_d2_hits", "host_d2_native_hits",
+                  "graph_captures", "graph_replays"):
             stats_out[k] = sum(s.get(k, 0) for s in seg_stats)
         stats_out["h2d_bytes"] += uploaded
         stats_out["max_alive"] = max(

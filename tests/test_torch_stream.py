@@ -112,9 +112,11 @@ def test_jax_checkpoint_capped_kb_identical_hits(jax_seg):
     assert len(got[0]) > 50
     # JAX's search statistics, its upload times replaced by the
     # ``stream.upload`` span, with the bytes copied each way and the hits
-    # whose d2 the host recomputed
+    # whose d2 the host recomputed and the center blocks captured as and
+    # replayed from CUDA graphs
     assert set(st) == set(jst) - {"upload_dispatch_s"} | {
-        "d2h_bytes", "h2d_bytes", "host_d2_hits", "host_d2_native_hits"}
+        "d2h_bytes", "h2d_bytes", "host_d2_hits", "host_d2_native_hits",
+        "graph_captures", "graph_replays"}
 
 
 def test_port_checkpoint_loads_in_jax(jax_seg, port_seg, tmp_path):
