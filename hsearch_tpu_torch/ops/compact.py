@@ -97,7 +97,7 @@ def unpack_hits(packed: np.ndarray, meta_lens: tuple = ()):
     Returns (hits, metas): ``metas`` is a list of int32 vectors matching
     ``meta_lens``; ``hits`` is (cid, kid, d2) arrays of length ``total``
     (d2 is None for a ``with_d2=False`` buffer), or None when the packed
-    capacity overflowed (the caller falls back to the full buffers).
+    capacity overflowed (the caller reads the full buffers: ``full_hits``).
     """
     out = np.asarray(packed).reshape(-1)
     kid_bits, cap, tot = int(out[0]), int(out[1]), int(out[2])
@@ -118,3 +118,23 @@ def unpack_hits(packed: np.ndarray, meta_lens: tuple = ()):
         kid = out[off + cap:off + cap + tot]
         d2 = out[off + 2 * cap:off + 2 * cap + tot].view(np.float32)
     return (cid, kid, d2), metas
+
+
+def full_hits(ids: torch.Tensor, d2: torch.Tensor, sentinel,
+              real: int | None = None):
+    """Host-side read of the full (C, k) hit slots behind a packed buffer
+    that overflowed.
+
+    Reads ``ids`` and ``d2`` back; slots with ids >= ``sentinel``, and
+    every slot of rows ``real:`` (padding centers), are not hits.  Returns
+    (cid int64, kid int64, d2, nbytes): the hits in row-major order, d2 in
+    its buffer's dtype, and the bytes read back.
+    """
+    idsh = ids.cpu().numpy()
+    d2h = d2.cpu().numpy()
+    valid = idsh < sentinel
+    if real is not None:
+        valid[real:] = False
+    hc, hm = np.nonzero(valid)
+    return (hc.astype(np.int64), idsh[hc, hm].astype(np.int64), d2h[hc, hm],
+            idsh.nbytes + d2h.nbytes)

@@ -344,11 +344,7 @@ def _search_sharded(index, arr, emb, center_block, per_shard, gather,
             hc, hk, hd = hits
         else:
             # packed capacity overflowed: the full buffers transfer now
-            gh = gids.cpu().numpy()
-            dh = gd2.cpu().numpy()
-            hc, hm = np.nonzero(gh < index.n_points)
-            hk = gh[hc, hm]
-            hd = dh[hc, hm]
+            hc, hk, hd, _ = compact.full_hits(gids, gd2, index.n_points)
         out_c.append(hc.astype(np.int64) + lo)
         out_k.append(hk.astype(np.int64))
         out_d.append(np.sqrt(np.maximum(hd, 0.0)))

@@ -137,17 +137,12 @@ def search_radius(db_kmers: np.ndarray, centers: np.ndarray, radius: float,
         truncated += int((n_hits > max_hits).sum())
         if hits is not None:
             hc, hk, hd = hits
-            ci.append(hc.astype(np.int64) + s)
-            ki.append(hk.astype(np.int64))
-            dd.append(np.sqrt(np.maximum(hd, 0.0)))
         else:
             # packed capacity overflowed: the full buffers transfer now
-            ids = ids.cpu().numpy()
-            d2 = d2.cpu().numpy()
-            hit_c, hit_k = np.nonzero(ids < n)
-            ci.append(hit_c + s)
-            ki.append(ids[hit_c, hit_k].astype(np.int64))
-            dd.append(np.sqrt(np.maximum(d2[hit_c, hit_k], 0.0)))
+            hc, hk, hd, _ = compact.full_hits(ids, d2, n)
+        ci.append(hc.astype(np.int64) + s)
+        ki.append(hk.astype(np.int64))
+        dd.append(np.sqrt(np.maximum(hd, 0.0)))
     if truncated:
         warnings.warn(f"{truncated} centers exceeded max_hits={max_hits}; "
                       "nearest hits kept")

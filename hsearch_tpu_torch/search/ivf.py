@@ -395,7 +395,7 @@ def _block_steps(index: IVFIndex, r: np.float32, k_blocks: int,
     (C, L) int or (C, 8L) f32 and ``emb`` (C, 8L) f32 go in; ``ids`` (C, k)
     int32 sentinel-N, ``d2`` (C, k) f32, ``n_hits`` (C,) and ``n_alive``
     (C,) come out, k = min(max_hits, kb * bs), and with ``cap_frac`` the
-    ``pack`` step folds the last two into ``packed``.  No step
+    ``pack`` step folds all four into ``packed``.  No step
     synchronises the host, and every shape is fixed by the index, C, kb,
     ``max_hits`` and ``cap_frac``, so the steps can run eagerly or be
     captured as CUDA graphs (``_search_block``).
@@ -442,8 +442,8 @@ def _block_steps(index: IVFIndex, r: np.float32, k_blocks: int,
 
     def pack(v):
         v["packed"] = compact.pack_hits(
-            v["ids"], v["d2"], n, meta_vecs=(v.pop("n_hits"),
-                                             v.pop("n_alive")),
+            v.pop("ids"), v.pop("d2"), n,
+            meta_vecs=(v.pop("n_hits"), v.pop("n_alive")),
             cap_frac=cap_frac, with_d2=with_d2)
 
     steps = [("ivf.prune", prune), ("ivf.select", select),
@@ -484,14 +484,13 @@ def _search_block(index: IVFIndex, centers: torch.Tensor,
                   max_hits: int, cap_frac: int = 4, with_d2: bool = True,
                   approx_select: bool = False):
     """The block's chain with the packed transfer, queued eagerly: returns
-    (packed flat int32 buffer — ops/compact layout with meta = [n_hits (C),
-    n_alive (C)]; ids (C, max_hits) sentinel-N and d2 (C, max_hits) as
-    the lossless overflow fallback)."""
+    the packed flat int32 buffer (ops/compact layout with meta = [n_hits
+    (C), n_alive (C)])."""
     with profiling.span("ivf.block"):
         v = _run_steps(_block_steps(index, r, k_blocks, max_hits,
                                     approx_select, cap_frac, with_d2),
                        {"centers": centers, "emb": centers_emb})
-    return v["packed"], v["ids"], v["d2"]
+    return v["packed"]
 
 
 def _capture_cuda(steps, v: dict, dev: torch.device) -> list:
@@ -587,7 +586,7 @@ def _graphed_block(index: IVFIndex, centers: torch.Tensor,
                    max_hits: int, cap_frac: int, with_d2: bool,
                    approx_select: bool, copy_out: bool = True):
     """``_search_block``, replayed from CUDA graphs where the index has run
-    the block's shape before: returns its three outputs and how it ran
+    the block's shape before: returns its packed buffer and how it ran
     (None eagerly, "capture" or "replay").
 
     On a device in ``_CAPTURE`` the chain is keyed by the center block's
@@ -597,9 +596,9 @@ def _graphed_block(index: IVFIndex, centers: torch.Tensor,
     captures the chain (one graph per span) and launches it, and later
     calls copy the block into the graphs' input tensors and replay them.
     The same kernels run in the same order, so the hits are those of the
-    eager chain, bit for bit.  A graph's outputs live in its memory, which
-    its next replay overwrites: ``copy_out`` copies them out, and a caller
-    that reads them before it queues the same key again may pass False.
+    eager chain, bit for bit.  A graph's output lives in its memory, which
+    its next replay overwrites: ``copy_out`` copies it out, and a caller
+    that reads it before it queues the same key again may pass False.
     The cache is not for use from several threads at once.
     """
     capture = _CAPTURE.get(centers.device.type)
@@ -623,12 +622,10 @@ def _graphed_block(index: IVFIndex, centers: torch.Tensor,
                     with profiling.span(name):
                         replay()
                 cuda_kernels.count_launches(entry.launches)
-                out = v["packed"], v["ids"], v["d2"]
-                if copy_out:
-                    out = tuple(t.clone() for t in out)
-                return (*out, how)
-    return (*_search_block(index, centers, centers_emb, r, k_blocks,
-                           max_hits, cap_frac, with_d2, approx_select), None)
+                packed = v["packed"]
+                return (packed.clone() if copy_out else packed), how
+    return _search_block(index, centers, centers_emb, r, k_blocks, max_hits,
+                         cap_frac, with_d2, approx_select), None
 
 
 def autotune_k_blocks(index: IVFIndex, sample_centers: np.ndarray,
@@ -680,6 +677,12 @@ def _approximates(dev: torch.device) -> bool:
     return dev.type == "cuda"
 
 
+# the ``stats_out`` counters of ``search`` that add up over its center
+# blocks and its retry (and over ``stream.search_segmented``'s segments)
+SUMMED_COUNTERS = ("d2h_bytes", "h2d_bytes", "host_d2_hits",
+                   "graph_captures", "graph_replays")
+
+
 @profiling.spanned("ivf.search")
 def search(index: IVFIndex, centers: np.ndarray, radius: float,
            k_blocks: int = 64, max_hits: int = 256,
@@ -700,9 +703,10 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
     ``over_blocks``/``over_hits``/``max_alive`` (else a warning reports
     overflows).
 
-    ``pack_cap_frac`` divides the packed buffer's capacity
-    (C*max_hits // cap_frac); a block whose hits overflow it is
-    re-dispatched with a capacity that fits.  ``transfer_d2=False`` (the
+    ``pack_cap_frac`` (>= 1, else ValueError) divides the packed buffer's
+    capacity (C*max_hits // cap_frac); a block whose hits overflow it is
+    re-dispatched once with a capacity that fits, at worst cap_frac 1,
+    which holds every hit slot.  ``transfer_d2=False`` (the
     default with integer centers and an index holding host k-mers) ships
     one word per hit and recomputes d2 on the host, as the JAX package
     does: a table sum of L entries is cheaper to recompute than to move.
@@ -731,14 +735,12 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
     the copy runs under this search's kernels.
 
     ``stats_out`` also receives ``d2h_bytes`` (every buffer read back:
-    the packed buffers, a re-dispatch's, the full fallback buffers),
-    ``h2d_bytes`` (the padded centers and their embedding),
-    ``host_d2_hits`` (hits whose d2 the host recomputed) and
-    ``host_d2_native_hits`` (of those, the hits the library's pass
-    recomputed: all of them, since the pass has no fallback),
-    ``graph_captures`` (center blocks whose device chain was captured as
-    CUDA graphs) and ``graph_replays`` (center blocks served by replaying
-    graphs captured before them), the retry's included.
+    the packed buffers and a re-dispatch's), ``h2d_bytes`` (the padded
+    centers and their embedding), ``host_d2_hits`` (hits whose d2 the
+    host recomputed), ``graph_captures`` (center blocks whose device
+    chain was captured as CUDA graphs) and ``graph_replays`` (center
+    blocks served by replaying graphs captured before them), the retry's
+    included: ``SUMMED_COUNTERS``.
 
     On a CUDA index a center block's device chain (prune, select, verify,
     top hits, packing) is replayed from CUDA graphs once the index has run
@@ -759,17 +761,18 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
     ``torch.profiler`` trace the call is the span ``ivf.search``:
     ``ivf.centers``, per center block ``ivf.block``
     (``ivf.prune``, ``ivf.select``, ``ivf.verify``, ``ivf.top_hits``,
-    ``ivf.pack``), then per block ``ivf.d2h``, ``ivf.unpack`` and
-    ``ivf.host_d2`` (or ``ivf.redispatch``, ``ivf.fallback``), then
-    ``ivf.assemble`` and ``ivf.retry``.
+    ``ivf.pack``), then per block ``ivf.d2h``, ``ivf.unpack``
+    (``ivf.redispatch`` where the packed buffer overflowed) and
+    ``ivf.host_d2``, then ``ivf.assemble`` and ``ivf.retry``.
     """
+    if pack_cap_frac < 1:
+        raise ValueError(f"pack_cap_frac must be >= 1, got {pack_cap_frac}")
     dev = index.device
     c_total = centers.shape[0]
     centers = np.asarray(centers)
     is_kmers = np.issubdtype(centers.dtype, np.integer)
     if is_kmers:
         _check_kmers(centers, "centers")
-    n = index.n_points
     host_km = index.host_kmers
     if transfer_d2 is None:
         transfer_d2 = not (is_kmers and host_km is not None)
@@ -781,7 +784,7 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
             f"{'present' if host_km is not None else 'absent'}")
     if not transfer_d2:
         centers_i8 = np.ascontiguousarray(centers, np.int8)
-    host_d2_hits = host_d2_native = 0
+    counts: collections.Counter = collections.Counter()
     kb_used = min(k_blocks, index.num_blocks)
     if approx_select is None:
         approx_select = os.environ.get("HSEARCH_APPROX_SELECT", "0") == "1"
@@ -799,39 +802,38 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
         epad = np.pad(cemb_all, ((0, pad_total), (0, 0)))
         cdev = torch.as_tensor(cpad, device=dev)
         edev = torch.as_tensor(epad, device=dev)
-    h2d_bytes = cpad.nbytes + epad.nbytes
-    d2h_bytes = 0
+    counts["h2d_bytes"] += cpad.nbytes + epad.nbytes
     ci, ki, dd = [], [], []
     redo: list[np.ndarray] = []      # center ids that lost the guarantee
     over_blocks = over_hits = 0
     # two passes: queue every center block first, then harvest — block
     # i's device->host copy overlaps the device work of the later blocks
     pending = []
-    graph_runs: collections.Counter = collections.Counter()
     for s in range(0, c_total, center_block):
         real = min(center_block, c_total - s)
         # every block is harvested after the last one is queued: only the
-        # last may leave its outputs in a graph's memory
-        *block, how = _graphed_block(
+        # last may leave its output in a graph's memory
+        packed, how = _graphed_block(
             index, cdev[s:s + center_block], edev[s:s + center_block], r,
             k_blocks, max_hits, pack_cap_frac, transfer_d2, approx,
             copy_out=s + center_block < c_total)
-        graph_runs[how] += 1
-        pending.append((s, real, block))
+        if how is not None:
+            counts[f"graph_{how}s"] += 1      # graph_captures, graph_replays
+        pending.append((s, real, packed))
     if after_dispatch is not None:
         after_dispatch()
     max_alive = 0
-    for s, real, (packed, ids, d2) in pending:
+    for s, real, packed in pending:
         with profiling.span("ivf.d2h"):
             packed_np = packed.cpu().numpy()
-        d2h_bytes += packed_np.nbytes
+        counts["d2h_bytes"] += packed_np.nbytes
         with profiling.span("ivf.unpack"):
             hits, (n_hits, n_alive) = compact.unpack_hits(
                 packed_np, (center_block, center_block))
-        if hits is None and pack_cap_frac > 1:
+        if hits is None:
             # packed-capacity escalation: re-dispatch the SAME block with
-            # the buffer sized to the now-known total (cap_frac=1 holds
-            # every possible hit) instead of pulling the full buffers
+            # the buffer sized to the now-known total; cap_frac=1 holds
+            # every possible hit, so one re-dispatch always fits
             with profiling.span("ivf.redispatch"):
                 total = int(packed_np[2])
                 k_sel = min(max_hits, kb_used * index.block_size)
@@ -839,12 +841,11 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
                 while cap > 1 and (center_block * k_sel) // cap < total:
                     cap //= 4
                 cap = max(cap, 1)
-                packed, ids, d2 = _search_block(
+                packed_np = _search_block(
                     index, cdev[s:s + center_block],
                     edev[s:s + center_block], r, k_blocks, max_hits, cap,
-                    transfer_d2, approx)
-                packed_np = packed.cpu().numpy()
-                d2h_bytes += packed_np.nbytes
+                    transfer_d2, approx).cpu().numpy()
+                counts["d2h_bytes"] += packed_np.nbytes
                 hits, (n_hits, n_alive) = compact.unpack_hits(
                     packed_np, (center_block, center_block))
         bad = ((n_alive[:real] > kb_used)
@@ -855,31 +856,19 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
             max_alive = max(max_alive, int(n_alive[:real].max()))
         if retry_overflow:
             redo.append(np.nonzero(bad)[0] + s)
-        if hits is not None:
-            hc0, hk0, hd0 = hits
-            keep = hc0 < real                  # drop padding-center rows
-            hc = hc0[keep].astype(np.int64)
-            hk = hk0[keep].astype(np.int64)
-            with profiling.span("ivf.host_d2"):
-                if hd0 is None:
-                    # 1-word layout: d2 recomputed from the host k-mers
-                    # (sum_l DSQ[q_l, p_l] — the exact verify metric)
-                    hd = native_ext.hit_sq_distance(centers_i8, hc + s,
-                                                    host_km, hk)
-                    host_d2_hits += len(hd)
-                    host_d2_native += len(hd)
-                else:
-                    hd = hd0[keep]
-        else:
-            # packed capacity overflowed: the full buffers transfer now
-            with profiling.span("ivf.fallback"):
-                idsh = ids.cpu().numpy().copy()
-                d2h = d2.cpu().numpy()
-                d2h_bytes += idsh.nbytes + d2h.nbytes
-                idsh[real:, :] = n
-                hc, hm = np.nonzero(idsh < n)
-                hk = idsh[hc, hm].astype(np.int64)
-                hd = d2h[hc, hm]
+        hc0, hk0, hd0 = hits
+        keep = hc0 < real                      # drop padding-center rows
+        hc = hc0[keep].astype(np.int64)
+        hk = hk0[keep].astype(np.int64)
+        with profiling.span("ivf.host_d2"):
+            if hd0 is None:
+                # 1-word layout: d2 recomputed from the host k-mers
+                # (sum_l DSQ[q_l, p_l] — the exact verify metric)
+                hd = native_ext.hit_sq_distance(centers_i8, hc + s,
+                                                host_km, hk)
+                counts["host_d2_hits"] += len(hd)
+            else:
+                hd = hd0[keep]
         ci.append(hc + s)
         ki.append(hk)
         dd.append(np.sqrt(np.maximum(hd, 0.0)))
@@ -911,24 +900,21 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
             out_c = np.concatenate([out_c[keep], redo_ids[rc]])
             out_k = np.concatenate([out_k[keep], rk])
             out_d = np.concatenate([out_d[keep], rd]).astype(np.float32)
+        counts.update({k: sub_stats[k] for k in SUMMED_COUNTERS})
         if stats_out is not None:
             stats_out.update(
                 max_alive=max(max_alive, sub_stats.get("max_alive", 0)),
                 retried=int(redo_ids.size) + sub_stats.get("retried", 0),
                 retry_depth=1 + sub_stats.get("retry_depth", 0),
                 over_blocks=sub_stats.get("over_blocks", 0),
-                over_hits=sub_stats.get("over_hits", 0),
-                d2h_bytes=d2h_bytes + sub_stats["d2h_bytes"],
-                h2d_bytes=h2d_bytes + sub_stats["h2d_bytes"],
-                host_d2_hits=host_d2_hits + sub_stats["host_d2_hits"],
-                host_d2_native_hits=host_d2_native
-                + sub_stats["host_d2_native_hits"],
-                graph_captures=graph_runs["capture"]
-                + sub_stats["graph_captures"],
-                graph_replays=graph_runs["replay"]
-                + sub_stats["graph_replays"])
-        return out_c, out_k, out_d
-    elif (over_blocks or over_hits) and stats_out is None:
+                over_hits=sub_stats.get("over_hits", 0))
+    elif stats_out is not None:
+        stats_out.setdefault("max_alive", max_alive)
+        stats_out.setdefault("retried", 0)
+        stats_out.setdefault("retry_depth", 0)
+        stats_out["over_blocks"] = over_blocks
+        stats_out["over_hits"] = over_hits
+    else:
         if over_blocks:
             warnings.warn(
                 f"{over_blocks} centers had more than k_blocks="
@@ -939,15 +925,5 @@ def search(index: IVFIndex, centers: np.ndarray, radius: float,
                 f"{over_hits} centers exceeded max_hits={max_hits}; "
                 "nearest hits kept")
     if stats_out is not None:
-        stats_out.setdefault("max_alive", max_alive)
-        stats_out.setdefault("retried", 0)
-        stats_out.setdefault("retry_depth", 0)
-        stats_out["over_blocks"] = over_blocks
-        stats_out["over_hits"] = over_hits
-        stats_out["d2h_bytes"] = d2h_bytes
-        stats_out["h2d_bytes"] = h2d_bytes
-        stats_out["host_d2_hits"] = host_d2_hits
-        stats_out["host_d2_native_hits"] = host_d2_native
-        stats_out["graph_captures"] = graph_runs["capture"]
-        stats_out["graph_replays"] = graph_runs["replay"]
+        stats_out.update((k, counts[k]) for k in SUMMED_COUNTERS)
     return out_c, out_k, out_d

@@ -363,13 +363,8 @@ def search(index: MotifIndex, centers: np.ndarray,
         if hits is None:
             # packed capacity overflowed: the full buffers transfer now
             with profiling.span("lsh.fallback"):
-                idsh = hit_ids.cpu().numpy().copy()
-                d2h = d2.cpu().numpy()
-                d2h_bytes += idsh.nbytes + d2h.nbytes
-                idsh[real:, :] = n
-                hc, hm = np.nonzero(idsh < n)
-                hk = idsh[hc, hm].astype(np.int64)
-                hd = d2h[hc, hm]
+                hc, hk, hd, nbytes = compact.full_hits(hit_ids, d2, n, real)
+                d2h_bytes += nbytes
         ci_all.append(hc + s)
         ki_all.append(hk)
         dd_all.append(np.sqrt(np.maximum(hd, 0.0)))

@@ -388,11 +388,10 @@ def search_segmented(sidx: SegmentedIVF, centers: np.ndarray,
     buffered (see the module docstring).  ``stats_out`` receives the
     summed overflow counts, ``max_alive``, ``segments``,
     ``resident_fraction``, the per-segment search walls ``seg_walls_s``,
-    the summed ``d2h_bytes``, ``h2d_bytes``, ``host_d2_hits``,
-    ``host_d2_native_hits``, ``graph_captures`` and ``graph_replays`` (0:
-    segments run their center blocks eagerly, ``ivf.keep_eager``) of
-    the segments' searches
-    (``h2d_bytes`` with each streamed segment's upload) and, while a
+    the summed ``ivf.SUMMED_COUNTERS`` of the segments' searches
+    (``h2d_bytes`` with each streamed segment's upload; ``graph_captures``
+    and ``graph_replays`` 0: segments run their center blocks eagerly,
+    ``ivf.keep_eager``) and, while a
     ``torch.profiler`` trace records on a CUDA device, ``upload_wait_ms``:
     the device time the current stream stalled on the uploads, from CUDA
     events read after the last result came back.
@@ -468,9 +467,8 @@ def search_segmented(sidx: SegmentedIVF, centers: np.ndarray,
     ki = np.concatenate(out_k) if out_k else np.empty(0, np.int64)
     dd = np.concatenate(out_d) if out_d else np.empty(0, np.float32)
     if stats_out is not None:
-        for k in ("over_blocks", "over_hits", "retried", "d2h_bytes",
-                  "h2d_bytes", "host_d2_hits", "host_d2_native_hits",
-                  "graph_captures", "graph_replays"):
+        for k in ("over_blocks", "over_hits", "retried",
+                  *ivf.SUMMED_COUNTERS):
             stats_out[k] = sum(s.get(k, 0) for s in seg_stats)
         stats_out["h2d_bytes"] += uploaded
         stats_out["max_alive"] = max(

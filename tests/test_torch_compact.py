@@ -1,6 +1,6 @@
 """Packed hit buffers: hsearch_tpu_torch.ops.compact and hsearch_tpu.ops.compact
 decode each other's buffers (fused, split, with_d2=False, 32-bit fused
-word, overflow)."""
+word, overflow), and an overflowed buffer's full slots read back."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +18,10 @@ LAYOUTS = {
     # cid_bits (4) + kid_bits (28) == 32: the fused word reaches the sign bit
     "fused_32bit": (16, 8, 1 << 28, {"cap_frac": 2}),
     "overflow": (8, 16, 1000, {"cap_frac": 16}),
+    "overflow_padded": (8, 16, 1000, {"cap_frac": 16}),
 }
+# the real (unpadded) center rows full_hits is given, by overflow layout
+OVERFLOW_REAL = {"overflow": None, "overflow_padded": 5}
 
 
 def _slots(rng, c, k, sentinel):
@@ -64,8 +67,21 @@ def test_cross_decode(rng, layout):
     for unpack in (tc.unpack_hits, jc.unpack_hits):
         _unpacked_equal(unpack(t_buf, (c,)), unpack(j_buf, (c,)), c)
     hits, _ = tc.unpack_hits(j_buf, (c,))
-    if layout == "overflow":
+    if layout in OVERFLOW_REAL:
         assert hits is None and total > int(j_buf[1])
+        real = OVERFLOW_REAL[layout]
+        hc, hk, hd, nbytes = tc.full_hits(torch.as_tensor(ids),
+                                          torch.as_tensor(d2), sentinel, real)
+        valid = ids < sentinel
+        if real is not None:
+            assert valid[real:].any()                 # the mask drops hits
+            valid[real:] = False
+        want_c, want_k = np.nonzero(valid)
+        assert hc.dtype == hk.dtype == np.int64 and hd.dtype == np.float32
+        np.testing.assert_array_equal(hc, want_c)
+        np.testing.assert_array_equal(hk, ids[want_c, want_k])
+        np.testing.assert_array_equal(hd, d2[want_c, want_k])
+        assert nbytes == ids.nbytes + d2.nbytes
         return
     cid, kid, hd2 = hits
     want_c, want_k = np.nonzero(ids < sentinel)

@@ -17,7 +17,7 @@ import torch
 from hsearch_tpu.parallel import mesh as jmesh, sharded as jsharded
 from hsearch_tpu.search import motif as jmotif
 from hsearch_tpu_torch.core import embedding
-from hsearch_tpu_torch.ops import cuda_kernels
+from hsearch_tpu_torch.ops import compact, cuda_kernels
 from hsearch_tpu_torch.parallel import mesh as mesh_lib, sharded
 from hsearch_tpu_torch.search import exact, motif
 
@@ -371,17 +371,23 @@ def test_no_false_truncation_warning(rng):
         sharded.search(idx, db[:4], radius=60.0)
 
 
-def test_sharded_packed_overflow_fallback(rng):
-    """Every center hits every row: the packed buffer overflows and the
+def test_sharded_packed_overflow_fallback(rng, monkeypatch):
+    """Every center hits every row: the merge's packed buffer (2 db shards
+    of n slots per center, a quarter of them packed) overflows and the
     merge falls back to the full blocks without losing a hit."""
     n, c, l = 256, 8, 10
     db = rng.integers(0, 20, (n, l), dtype=np.int32)
     centers = db[:c].copy()
     idx = sharded.build_ivf_index(db, torch.Generator().manual_seed(2),
-                                  _mesh(), block_size=16, max_hits=n)
+                                  _mesh(data=4), block_size=16, max_hits=n)
+    full_reads = []
+    full_hits = compact.full_hits
+    monkeypatch.setattr(compact, "full_hits",
+                        lambda *a: full_reads.append(a) or full_hits(*a))
     st = {}
     got = sharded.search_ivf(idx, centers, radius=1e3,
                              k_blocks=idx.blocks_per_shard, stats_out=st)
+    assert full_reads
     gt = exact.search_radius(db, centers, 1e3, max_hits=n, device="cpu")
     assert len(got[0]) == c * n and st["over_blocks"] == 0
     assert _pairs(got) == _pairs(gt)

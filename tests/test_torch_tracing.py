@@ -88,7 +88,7 @@ def test_search_spans_nest_per_center_block(small, tmp_path):
         assert _count(tree, name) == _count(tree, name, "ivf.search") == 3
     for name in BLOCK_SPANS:
         assert _count(tree, name) == _count(tree, name, "ivf.block") == 3
-    for name in ("ivf.redispatch", "ivf.fallback", "ivf.retry"):
+    for name in ("ivf.redispatch", "ivf.retry"):
         assert _count(tree, name) == 0
 
 
